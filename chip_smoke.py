@@ -5,21 +5,29 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, then drives the port's
-main path (host recruitment -> alignment on the GPU -> multi-stage solving
-on the GPU, reference-default scheme) on two simulated samples whose truth is
-known:
+main path (recruitment, alignment and multi-stage solving, all on the GPU,
+reference-default scheme) on simulated samples whose truth is known:
 
-  (a) a panel of 4 loci x 6 haplotypes of 4 kb, 15x reads plus ~10x
-      off-locus background, every read recruited by the host engine;
-  (b) one HLA-scale locus: 200 haplotypes in 10 clades, 20,100 genotypes at
-      the stage-0 filter.
+  (a)  a panel of 4 loci x 6 haplotypes of 4 kb, 15x paired reads plus ~10x
+       off-locus background, written to two FASTQ files and recruited by
+       `commands.genotype.recruit_reads_fast` (native parser, device batches
+       of 32,768 pairs); the recruited reads must equal the host engine's;
+  (a') the same files through the command line: `cli.main(["add", ...])`
+       builds the database, `cli.main(["genotype", ...])` goes from FASTQ to
+       res.json.gz;
+  (b)  one HLA-scale locus: 200 haplotypes in 10 clades, 20,100 genotypes at
+       the stage-0 filter, recruited by `commands.genotype.recruit_reads`
+       (the iterator entry, device pair batches);
+  (c)  a long-read panel: 3 loci x 4 haplotypes of 16,384 bp, single reads
+       of 12,000 +- 2,000 bases at 10x plus 5x background, recruited by
+       `recruit_reads` in long device batches, aligned at band 160.
 
 Every call must equal the simulated truth.  The launch counts are set to 0
 just before each sample and read just after it, and each kernel must have
-been launched in each.  The script needs a CUDA device (it exits with a
-non-zero code without one), imports neither `jax` nor the JAX package, needs
-no network and starts no process that outlives it (`nvcc`, `make` and
-`nvidia-smi` are waited for).
+been launched in each sample that needs it.  The script needs a CUDA device
+(it exits with a non-zero code without one), imports neither `jax` nor the
+JAX package, needs no network and starts no process that outlives it
+(`nvcc`, `make` and `nvidia-smi` are waited for).
 
 Output: one line per phase; then a JSON line `{"kernels": [...]}` with, for
 each kernel, its launches on the main path (`launches`, the sum of
@@ -31,11 +39,16 @@ the same work (`bound_ms`); last, the contract line
 `{"ok": true, "device": {...}}`.  The annealer runs in two modes on the main
 path (Metropolis steps then polish, and polish only); its largest launch of
 each mode is held against the plain version, exactly, and timed, and the
-entry's `modes` carries both.
+entry's `modes` carries both.  `align_banded` carries `long_rows`: its
+largest main-path launch on rows longer than 8,192 (sample (c)), where the
+reference package switches to a second, row-streamed TPU kernel and this
+port keeps launching the one kernel.  `minimizer_front` is one source with
+two entries, `compact` and `full`; each is a launch count of its own and the
+kernel entry's `entries` carries both.
 
 How `bound_ms` is counted.  It is the larger of bytes / 3.35e12 B/s and
 operations / 67e12 op/s (H100 SXM: HBM3 rate and float32 rate outside the
-tensor cores; both kernels do scalar float32/int32 work only).
+tensor cores; all kernels do scalar float32/int32 work only).
   align_banded: bytes = every read, window, length and score read once,
     the eight [N] outputs written once.  Operations = band cells of the rows
     that this run's reads really have (sum of min(len, L) over jobs) x the
@@ -45,47 +58,63 @@ tensor cores; both kernels do scalar float32/int32 work only).
     really proposed (the kernel reports them; a frozen chain stops) x the
     operations of one move, counted in the header of anneal_chains.cu; plus
     one add per window and per read for the final likelihood.
-No single PyTorch call computes either function, so `library_ms` is null.
+  minimizer_front: bytes = the codes read once, hs (4 bytes), is_fw and
+    mask (1 byte each) written once for every output column, and for the
+    compacting entry 4 bytes of `total` a row.  Operations = positions
+    B x (L - k + 1) x the operations of one position, counted in the header
+    of minimizer_front.cu (26 + 4 (w - 1)).
+No single PyTorch call computes any of these functions, so `library_ms` is
+null.
 
-With `--profile`, sample (b) is run once more under `torch.profiler` after
-everything else, and the device's busy share of that run and the device time
-by kernel name are printed (before the two closing JSON lines).
+With `--profile`, samples (b) and (a), and (a)'s recruit phase alone, are
+run once more under `torch.profiler` after everything else, and the device's
+busy share of each run and the device time by kernel name are printed
+(before the two closing JSON lines).
 """
+import gzip
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from locityper_tpu_torch import _kernels, sim
+from locityper_tpu_torch import _kernels, cli, sim
 from locityper_tpu_torch.bg import BgDistr, SequencingInfo, Technology
 from locityper_tpu_torch.bg.depth import ReadDepth
 from locityper_tpu_torch.bg.err_prof import (EditDistCache, EditThresh,
                                              ErrorProfile)
 from locityper_tpu_torch.bg.insertsz import InsertDistr
+from locityper_tpu_torch.commands import genotype as G
 from locityper_tpu_torch.mathx.distr import NBinom
 from locityper_tpu_torch.model import Params
 from locityper_tpu_torch.model.assgn import LocusTensors
 from locityper_tpu_torch.model.locs import build_all_alignments_panel
 from locityper_tpu_torch.model.windows import ContigInfoPack
 from locityper_tpu_torch.ops import align as A
+from locityper_tpu_torch.ops import recruit as R
 from locityper_tpu_torch.ops import solver_chains as SC
 from locityper_tpu_torch.ops.solver import SolverConfig, build_bayes_table
-from locityper_tpu_torch.pipeline import (LocusData, genotype_panel,
-                                          recruit_reads)
+from locityper_tpu_torch.pipeline import LocusData, genotype_panel
+from locityper_tpu_torch.pipeline import recruit_reads as host_recruit_reads
+from locityper_tpu_torch.seq import fastx
 from locityper_tpu_torch.seq.contigs import ContigSet
 from locityper_tpu_torch.seq.counts import GenomeKmerCounter, off_target_counts
 from locityper_tpu_torch.seq.recruit import RecruitParams
 from locityper_tpu_torch.solvers import ilp
 from locityper_tpu_torch.solvers.solve import Scheme, _unpermute_assignments
+from locityper_tpu_torch.utils import paths
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 K1_OPS_PER_CELL = 52          # counted in the header of align_banded.cu
 K2_OPS_PER_MOVE = 232         # counted in the header of anneal_chains.cu
+K3_OPS_FIXED, K3_OPS_PER_NEIGHBOUR = 26, 4  # header of minimizer_front.cu
+LONG_ROWS = 8192              # above this the reference streams rows (K4)
 DEPTH = 15.0
 BACKGROUND_MULTIPLE = 10        # (a): off-locus read mass / locus flanks
 
@@ -314,6 +343,79 @@ def phase_k2():
           f"(plain {r['plain_ms']:.0f} ms)", flush=True)
 
 
+# -- K3 / K5 -----------------------------------------------------------------
+
+def make_reads(seed, B, L, n_frac=0.001):
+    """Random codes with a few N, one row of a single repeated base (every
+    hash ties) and one row with a long run of N."""
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 4, (B, L), dtype=np.int8)
+    reads[rng.random((B, L)) < n_frac] = 4
+    reads[0] = 2
+    reads[-1, L // 4:L // 2] = 4
+    return torch.from_numpy(reads).cuda()
+
+
+def front_bound_ms(reads, k, w, S):
+    B, L = reads.shape
+    P = L - k + 1
+    cols = P if S is None else S
+    moved = B * L + B * cols * (4 + 1 + 1) + (0 if S is None else 4 * B)
+    ops = B * P * (K3_OPS_FIXED + K3_OPS_PER_NEIGHBOUR * (w - 1))
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "operations" if by_ops >= by_bytes else "bytes")
+
+
+def compare_front(reads, k, w, S, what):
+    """Kernel vs plain version on the card: every output bit-identical
+    (integers only).  Returns a dict of measurements."""
+    got = R.minimizer_front(reads, k, w, S)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = R.minimizer_front_reference(reads, k, w, S)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = 0.0
+    for name, a, b in zip(("hs", "is_fw", "mask", "total"), got, want):
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"minimizer_front {what}: {name} is {a.dtype} {tuple(a.shape)}, "
+              f"plain {b.dtype} {tuple(b.shape)}")
+        n_bad = int((a != b).sum())
+        check(n_bad == 0, f"minimizer_front {what}: {n_bad} values differ "
+                          f"in {name}")
+        err = max(err, float((a.to(torch.int64) - b.to(torch.int64))
+                             .abs().max()))
+    check(bool(got[2].any()) or reads.shape[1] - k + 1 < w,
+          f"minimizer_front {what}: empty mask")
+    ms = time_ms(lambda: R.minimizer_front(reads, k, w, S))
+    bound_ms, bound_by = front_bound_ms(reads, k, w, S)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
+                bound_by=bound_by,
+                shape=dict(B=int(reads.shape[0]), L=int(reads.shape[1]), k=k,
+                           w=w, S=S, minimizers=int(got[2].sum())))
+
+
+def phase_front():
+    for B, L, S, entry in ((65536, 192, R._front_S(192 - 15 + 1, 10),
+                            "compact"), (128, 16384, None, "full")):
+        r = compare_front(make_reads(B + L, B, L), 15, 10, S,
+                          f"{entry} {B}x{L}")
+        print(f"K3/K5 minimizer_front {entry} {B} reads L={L} k=15 w=10 "
+              f"S={S}: all outputs bit-identical; {r['ms']:.3f} ms/launch, "
+              f"{B * L / r['ms'] * 1e3:.3e} bases/s "
+              f"(plain {r['plain_ms']:.0f} ms, bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']})", flush=True)
+    # Other parameters, a truncating S, S past the row, one short row.
+    for B, L, k, w, S in ((999, 152, 15, 10, 8), (999, 152, 11, 5, None),
+                          (999, 152, 7, 1, 160), (1, 15, 15, 10, 4),
+                          (77, 3001, 15, 40, None), (77, 3001, 13, 63, 900)):
+        compare_front(make_reads(B + L + w, B, L, 0.01), k, w, S,
+                      f"{B}x{L} k={k} w={w} S={S}")
+    print("K3/K5 minimizer_front 6 further shapes and parameters: all "
+          "outputs bit-identical", flush=True)
+
+
 # -- main path ---------------------------------------------------------------
 
 def make_bg(read_len=150.0, depth_per_hap=DEPTH, window=100):
@@ -328,10 +430,21 @@ def make_bg(read_len=150.0, depth_per_hap=DEPTH, window=100):
                    depth)
 
 
-def build_sample(loci, rng, background_multiple):
-    """Genome with one copy of every locus, k-mer counts, and a read pool:
-    the true genotypes' reads plus off-locus background."""
-    flanks = [sim.random_genome(rng, 20000) for _ in range(len(loci) + 1)]
+def make_bg_long(depth=10.0, window=2000):
+    """Background distributions of the long-read sample (ONT-like)."""
+    err = ErrorProfile.estimate(950000, 20000, 8000, 8000,
+                                [(420, 12000, 50.0), (470, 12000, 30.0)])
+    m = depth * window / 12000.0 / 2.0
+    return BgDistr(SequencingInfo(12000.0, Technology.NANOPORE),
+                   InsertDistr.undefined(), err,
+                   ReadDepth(2, window, max(window, 300),
+                             [NBinom.estimate(m, m * 1.5)] * 101))
+
+
+def build_genome(loci, rng, flank_len):
+    """Genome with one copy of every locus between random flanks, and the
+    loci's k-mer counts against it."""
+    flanks = [sim.random_genome(rng, flank_len) for _ in range(len(loci) + 1)]
     genome = np.concatenate(
         [p for pair in zip(flanks, [lc.haplotypes[0] for lc in loci])
          for p in pair] + [flanks[-1]])
@@ -343,6 +456,13 @@ def build_sample(loci, rng, background_multiple):
         kc = off_target_counts(counter, locus.haplotypes, locus.haplotypes[0])
         data[locus.name] = LocusData(
             ContigSet(locus.name, locus.hap_names, locus.haplotypes), kc)
+    return genome, flanks, data
+
+
+def build_sample(loci, rng, background_multiple):
+    """Paired short reads: the true genotypes' reads plus off-locus
+    background.  Returns (genome, data, (names, reads1, reads2))."""
+    genome, flanks, data = build_genome(loci, rng, 20000)
     err = sim.ErrorModel(0.002, 0.0002, 0.0002)
     pools = [sim.simulate_paired_reads(
         rng, [locus.haplotypes[i] for i in locus.true_genotype], depth=DEPTH,
@@ -353,22 +473,47 @@ def build_sample(loci, rng, background_multiple):
     names = [n for p in pools for n in p.names]
     reads1 = [r for p in pools for r in p.reads1]
     reads2 = [r for p in pools for r in p.reads2]
-    return data, (names, reads1, reads2)
+    return genome, data, (names, reads1, reads2)
 
 
-def run_main_path(what, loci, data, reads, seed):
-    """recruit (host) -> align (GPU) -> solve (GPU), default scheme."""
-    names, reads1, reads2 = reads
-    bg = make_bg()
+def build_long_sample(loci, rng, depth=10.0):
+    """Long single reads of 12,000 +- 2,000 bases: the true genotypes at
+    `depth`, the flanks at half of it.  Returns (data, (names, reads))."""
+    _, flanks, data = build_genome(loci, rng, 30000)
+    err = sim.ErrorModel(mismatch=0.02, insertion=0.008, deletion=0.008)
+    pools = [sim.simulate_single_reads(
+        rng, [locus.haplotypes[i] for i in locus.true_genotype], depth=depth,
+        read_len_mean=12000, read_len_sd=2000, errors=err, prefix=locus.name)
+        for locus in loci]
+    pools.append(sim.simulate_single_reads(
+        rng, flanks, depth=depth / 2, read_len_mean=12000, read_len_sd=2000,
+        errors=err, prefix="bg"))
+    return data, ([n for p in pools for n in p.names],
+                  [r for p in pools for r in p.reads1])
+
+
+def write_fastq_pair(tmp, names, reads1, reads2):
+    fq1, fq2 = tmp / "reads_1.fq.gz", tmp / "reads_2.fq.gz"
+    with gzip.open(fq1, "wt", compresslevel=1) as f1, \
+            gzip.open(fq2, "wt", compresslevel=1) as f2:
+        for n, a, b in zip(names, reads1, reads2):
+            fastx.write_fastq(f1, fastx.Read(n, a))
+            fastx.write_fastq(f2, fastx.Read(n, b))
+    return fq1, fq2
+
+
+def run_main_path(what, loci, data, n_reads, recruit, bg, band, seed):
+    """recruit -> align -> solve, all on the GPU, default scheme.
+    `recruit()` returns {locus: (read_pairs, names)}; returns the same."""
     tech = bg.seq_info.technology
     params = Params(unmapped_penalty=tech.default_unmapped_penalty())
     params.set_tweak_size(bg.depth.window_size)
-    params.band = 48
+    params.band = band
     cache = EditDistCache(bg.err_prof, EditThresh.default_for(tech))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rec = recruit_reads(data, zip(names, reads1, reads2),
-                        RecruitParams(match_frac=tech.default_match_frac(True)))
+    rec = recruit()
+    torch.cuda.synchronize()
     t1 = time.perf_counter()
     panel = [(rec[lc.name][0], rec[lc.name][1], data[lc.name].contig_set,
               data[lc.name].kmer_counts) for lc in loci]
@@ -394,24 +539,94 @@ def run_main_path(what, loci, data, reads, seed):
     n_haps = len(loci[0].haplotypes)
     shapes = [[n_haps * (n_haps + 1) // 2, built[i][0].n_used, 2 * 10 + 1]
               for i in range(len(loci))]
-    print(f"main path {what}: {len(names)} read pairs, "
+    print(f"main path {what}: {n_reads} reads or pairs, "
           f"{sum(len(rec[lc.name][0]) for lc in loci)} recruited, "
           f"{n_exact}/{len(loci)} calls equal the truth; "
           f"recruit {t1 - t0:.2f} s, align {t2 - t1:.2f} s, "
           f"solve {t3 - t2:.2f} s; [G, R, K] per locus {shapes}; "
           f"launches {dict(_kernels.LAUNCHES)}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB", flush=True)
+    return rec
 
 
-def profile_main_path(what, loci, data, reads):
+def check_against_host(what, data, rec, read_iter, rp, ordered=True):
+    """The device recruiter's reads equal the per-read host engine's, on
+    reads padded with N as a device row pads them (w - 1 codes saturate the
+    effect); the count that the padding moves is printed."""
+    reads = list(read_iter)
+    host = host_recruit_reads(data, iter(reads), rp, pad=rp.minimizer_w - 1)
+    bare = host_recruit_reads(data, iter(reads), rp)
+    moved = 0
+    for name in data:
+        got, want = rec[name][1], host[name][1]
+        if not ordered:
+            got, want = sorted(got), sorted(want)
+        check(got == want, f"{what} {name}: device recruited {len(got)} "
+                           f"reads, host engine {len(want)}; "
+                           f"{len(set(got) ^ set(want))} names differ")
+        check(len(got) > 0, f"{what} {name}: nothing recruited")
+        moved += len(set(bare[name][1]) ^ set(want))
+    print(f"recruit {what}: device reads equal the host engine's at all "
+          f"{len(data)} loci ({sum(len(rec[n][1]) for n in data)} reads); "
+          f"row padding moves {moved} of them", flush=True)
+
+
+def run_cli_path(what, tmp, loci, genome, fq1, fq2):
+    """`add` then `genotype` through the command line, FASTQ to
+    res.json.gz, on the default device (CUDA)."""
+    ref, bed = tmp / "ref.fa", tmp / "loci.bed"
+    with open(ref, "w") as f:
+        fastx.write_fasta(f, "chr1", genome)
+    pos, rows = 0, []
+    flank = (genome.size - sum(lc.haplotypes[0].size for lc in loci)) \
+        // (len(loci) + 1)
+    for lc in loci:
+        pos += flank
+        rows.append(f"chr1\t{pos}\t{pos + lc.haplotypes[0].size}\t{lc.name}")
+        check(np.array_equal(genome[pos:pos + lc.haplotypes[0].size],
+                             lc.haplotypes[0]), f"{what}: locus not at {pos}")
+        pos += lc.haplotypes[0].size
+        with open(tmp / f"haps_{lc.name}.fa", "w") as f:
+            for name, seq in zip(lc.hap_names, lc.haplotypes):
+                fastx.write_fasta(f, name, seq)
+    bed.write_text("\n".join(rows) + "\n")
+    db, prep, out = tmp / "db", tmp / "sample", tmp / "out"
+    t0 = time.perf_counter()
+    rc = cli.main(["add", "-d", str(db), "-r", str(ref), "-l", str(bed),
+                   "-s", str(tmp / "haps_{}.fa")])
+    check(rc == 0, f"{what}: add returned {rc}")
+    paths.bg_dir(prep).mkdir(parents=True)
+    make_bg().save(paths.bg_dir(prep) / paths.BG_DISTR)
+    t1 = time.perf_counter()
+    rc = cli.main(["genotype", "-i", str(fq1), str(fq2), "-d", str(db),
+                   "-p", str(prep), "-o", str(out), "--seed", "1"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(rc == 0, f"{what}: genotype returned {rc}")
+    for lc in loci:
+        with gzip.open(paths.locus_dir(out, lc.name) / paths.RES_JSON,
+                       "rt") as f:
+            res = json.load(f)
+        truth = sorted(lc.hap_names[i] for i in lc.true_genotype)
+        check(sorted(res["genotype"].split(",")) == truth,
+              f"{what} {lc.name}: called {res['genotype']}, truth {truth}")
+        check(np.isfinite(res["quality"]), f"{what}: non-finite quality")
+    print(f"main path {what}: add {t1 - t0:.2f} s, genotype (FASTQ to "
+          f"res.json.gz) {t2 - t1:.2f} s, {len(loci)}/{len(loci)} "
+          f"res.json.gz name the truth; launches "
+          f"{dict(_kernels.LAUNCHES)}", flush=True)
+
+
+def profile_main_path(what, run):
     """One more warm run under torch.profiler: device time by kernel name
     and the device's busy share of the wall time (tracing slows the host,
     so the share is a lower bound on the untraced one)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _kernels.reset_launches()
         t0 = time.perf_counter()
-        run_main_path(what, loci, data, reads, seed=3)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events only: an operator's row repeats its kernels' time.
@@ -432,21 +647,35 @@ def profile_main_path(what, loci, data, reads):
 
 class Recorder:
     """Keeps the inputs of the largest launch of each kernel on the main
-    path (for the annealer: of each of its two modes), to hold the kernel
-    against its plain version and time it afterwards on inputs the path
-    really gave it."""
+    path (for the annealer: of each of its two modes; for the aligner: also
+    of its largest launch on rows longer than LONG_ROWS; for the minimizer
+    front end: of each of its two entries), to hold the kernel against its
+    plain version and time it afterwards on inputs the path really gave
+    it."""
 
     def __init__(self):
         self.align = None
+        self.align_long = None
+        self.n_align_long = {}          # path -> launches on long rows
+        self.path = None
         self.anneal = {}                # mode -> (args, kw, size)
+        self.front = {}                 # entry -> (reads, k, w, S)
         self._align_banded = A.align_banded
         self._anneal_chains = SC.anneal_chains
+        self._minimizer_front = R.minimizer_front
 
     def __enter__(self):
         def align_banded(reads, rlens, hap_wins, score_vec, band=48,
                          max_del_run=32):
+            args = (reads, rlens, hap_wins, score_vec, band)
             if self.align is None or reads.numel() > self.align[0].numel():
-                self.align = (reads, rlens, hap_wins, score_vec, band)
+                self.align = args
+            if reads.shape[1] > LONG_ROWS and reads.shape[0]:
+                self.n_align_long[self.path] = \
+                    self.n_align_long.get(self.path, 0) + 1
+                if self.align_long is None \
+                        or reads.numel() > self.align_long[0].numel():
+                    self.align_long = args
             return self._align_banded(reads, rlens, hap_wins, score_vec,
                                       band, max_del_run)
 
@@ -457,12 +686,29 @@ class Recorder:
                 self.anneal[mode] = (args, kw, size)
             return self._anneal_chains(*args, **kw)
 
+        def minimizer_front(reads, k, w, S=None):
+            entry = "full" if S is None else "compact"
+            if entry not in self.front \
+                    or reads.numel() > self.front[entry][0].numel():
+                self.front[entry] = (reads, k, w, S)
+            return self._minimizer_front(reads, k, w, S)
+
         A.align_banded, SC.anneal_chains = align_banded, anneal_chains
+        R.minimizer_front = minimizer_front
         return self
 
     def __exit__(self, *exc):
         A.align_banded, SC.anneal_chains = (self._align_banded,
                                             self._anneal_chains)
+        R.minimizer_front = self._minimizer_front
+
+
+FRONT = ("minimizer_front_compact", "minimizer_front_full")
+#: kernels that each sample must launch
+NEEDS = {"a": ("align_banded", "anneal_chains", FRONT[0]),
+         "a_cli": ("align_banded", "anneal_chains", FRONT[0]),
+         "b": ("align_banded", "anneal_chains", FRONT[0]),
+         "c": ("align_banded", "anneal_chains", FRONT[1])}
 
 
 def main():
@@ -476,12 +722,14 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
     _kernels.load()
-    print(f"build: {len(_kernels.KERNELS)} kernels for sm_90a in "
+    sources = sorted({src for src, _fn, _at in _kernels.KERNELS.values()})
+    print(f"build: {len(sources)} sources {sources} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     sv = torch.tensor(A.Scores.from_error_rates(0.002, 0.0002, 0.0002)
@@ -501,30 +749,95 @@ def main():
     print(f"K1 2048 jobs L=128 bands {list(bands)}: all 8 outputs "
           "bit-identical", flush=True)
     phase_k2()
+    phase_front()
 
     rng = np.random.default_rng(0)
     panel_loci = [sim.simulate_locus(rng, f"B{i}", length=4000, n_haps=6,
                                      divergence=0.015) for i in range(4)]
-    panel_data, panel_reads = build_sample(panel_loci, rng,
-                                           BACKGROUND_MULTIPLE)
+    panel_genome, panel_data, panel_reads = build_sample(
+        panel_loci, rng, BACKGROUND_MULTIPLE)
     hla_loci = [sim.simulate_structured_locus(
         rng, "HLA0", length=4000, n_clades=10, haps_per_clade=20,
         clade_divergence=0.02, within_divergence=0.003)]
-    hla_data, hla_reads = build_sample(hla_loci, rng, 1)
+    _, hla_data, hla_reads = build_sample(hla_loci, rng, 1)
+    rng_long = np.random.default_rng(7)
+    long_loci = [sim.simulate_locus(rng_long, f"L{i}", length=16384, n_haps=4,
+                                    divergence=0.01) for i in range(3)]
+    long_data, (long_names, long_reads) = build_long_sample(long_loci,
+                                                            rng_long)
 
-    paths = (("a", "(a) panel 4 loci x 6 haplotypes, background x"
-              f"{BACKGROUND_MULTIPLE}", panel_loci, panel_data, panel_reads),
-             ("b", "(b) HLA-scale locus, 200 haplotypes", hla_loci, hla_data,
-              hla_reads))
+    bg, bg_long = make_bg(), make_bg_long()
+    rp = RecruitParams(match_frac=Technology.ILLUMINA.default_match_frac(True))
+    rp_long = RecruitParams(
+        match_frac=Technology.NANOPORE.default_match_frac(False),
+        match_length=2000)
+
+    def long_iter():
+        return ((n, r, None) for n, r in zip(long_names, long_reads))
+
     launches = {}
-    with Recorder() as rec:
-        for seed, (key, what, loci, data, reads) in enumerate(paths, 1):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp_name, \
+            Recorder() as rec:
+        tmp = Path(tmp_name)
+        t0 = time.perf_counter()
+        fq1, fq2 = write_fastq_pair(tmp, *panel_reads)
+        print(f"sample (a): {len(panel_reads[0])} pairs written to "
+              f"{fq1.name}, {fq2.name} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        def run_a(seed=1):
+            return run_main_path(
+                "(a) panel 4 loci x 6 haplotypes, background x"
+                f"{BACKGROUND_MULTIPLE}, FASTQ", panel_loci, panel_data,
+                len(panel_reads[0]),
+                lambda: G.recruit_reads_fast(panel_data, fq1, fq2, rp)[0],
+                bg, 48, seed)
+
+        def run_b(seed=2):
+            return run_main_path(
+                "(b) HLA-scale locus, 200 haplotypes", hla_loci, hla_data,
+                len(hla_reads[0]),
+                lambda: G.recruit_reads(hla_data, zip(*hla_reads), rp)[0],
+                bg, 48, seed)
+
+        def run_c(seed=3):
+            return run_main_path(
+                "(c) long reads, 3 loci x 4 haplotypes of 16,384 bp",
+                long_loci, long_data, len(long_names),
+                lambda: G.recruit_reads(long_data, long_iter(), rp_long)[0],
+                bg_long, 160, seed)
+
+        def run_cli():
+            run_cli_path("(a') command line: add, genotype", tmp, panel_loci,
+                         panel_genome, fq1, fq2)
+
+        recruited = {}
+        for key, run in (("a", run_a), ("a_cli", run_cli), ("b", run_b),
+                         ("c", run_c)):
+            rec.path = key
             _kernels.reset_launches()
-            run_main_path(what, loci, data, reads, seed=seed)
+            recruited[key] = run()
             launches[key] = dict(_kernels.LAUNCHES)
-            for name, n in launches[key].items():
-                check(n > 0, f"kernel {name} was never launched by main "
-                             f"path ({key})")
+            for name in NEEDS[key]:
+                check(launches[key][name] > 0, f"kernel {name} was never "
+                      f"launched by main path ({key})")
+        check(rec.n_align_long.get("c", 0) > 0, "main path (c) launched "
+              f"align_banded on no rows longer than {LONG_ROWS}")
+        check_against_host("(a)", panel_data, recruited["a"],
+                           zip(*panel_reads), rp)
+        check_against_host("(b)", hla_data, recruited["b"], zip(*hla_reads),
+                           rp)
+        check_against_host("(c)", long_data, recruited["c"], long_iter(),
+                           rp_long, ordered=False)
+
+        if want_profile:
+            profile_main_path("(b) HLA-scale locus, traced",
+                              lambda: run_b(seed=3))
+            profile_main_path("(a) panel from FASTQ, traced",
+                              lambda: run_a(seed=3))
+            profile_main_path(
+                "(a) recruit phase alone, traced",
+                lambda: G.recruit_reads_fast(panel_data, fq1, fq2, rp))
 
     reads, lens, wins, svec, band = rec.align
     k1 = compare_align(reads, lens, wins, svec, band, "main-path launch")
@@ -532,6 +845,14 @@ def main():
           f"all 8 outputs bit-identical; {k1['ms']:.3f} ms "
           f"(plain {k1['plain_ms']:.0f} ms, bound {k1['bound_ms']:.4f} ms "
           f"by {k1['bound_by']})", flush=True)
+    reads, lens, wins, svec, band = rec.align_long
+    k4 = compare_align(reads, lens, wins, svec, band,
+                       "main-path launch on long rows")
+    check(k4["shape"][1] > LONG_ROWS, f"long rows: L = {k4['shape'][1]}")
+    print(f"main-path launch of align_banded on long rows {k4['shape']} "
+          f"[N, L, band], longest read {int(lens.max())}: all 8 outputs "
+          f"bit-identical; {k4['ms']:.3f} ms (plain {k4['plain_ms']:.0f} ms, "
+          f"bound {k4['bound_ms']:.4f} ms by {k4['bound_by']})", flush=True)
     check(set(rec.anneal) == {"anneal", "polish"},
           f"annealer modes on the main path: {sorted(rec.anneal)}")
     k2_modes = {}
@@ -547,29 +868,54 @@ def main():
     k2 = max(k2_modes.values(),
              key=lambda m: m["shape"]["C"] * m["shape"]["R"]
              * m["shape"]["K"] * m["shape"]["n_steps"])
-
-    if want_profile:
-        profile_main_path("(b) HLA-scale locus, traced", hla_loci, hla_data,
-                          hla_reads)
+    check(set(rec.front) == {"compact", "full"},
+          f"minimizer_front entries on the main path: {sorted(rec.front)}")
+    k3 = {}
+    for entry, (reads, k, w, S) in rec.front.items():
+        m = compare_front(reads, k, w, S, f"main-path {entry} launch")
+        k3[entry] = m
+        print(f"main-path launch of minimizer_front ({entry}) {m['shape']}: "
+              f"all outputs bit-identical; {m['ms']:.3f} ms "
+              f"(plain {m['plain_ms']:.0f} ms, bound {m['bound_ms']:.4f} ms "
+              f"by {m['bound_by']})", flush=True)
 
     def numbers(m):
         return {k: m[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "shape")}
 
-    def entry(name, source, replaces, m, **more):
-        by_path = {key: launches[key][name] for key in launches}
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=sum(by_path.values()), launches_by_path=by_path,
-                    **numbers(m), library_ms=None, **more)
+    def entry(name, counters, source, replaces, m, **more):
+        """One kernel (or one of its entries) with every key of the line;
+        `counters` are the launch counters that belong to it."""
+        by_path = {key: sum(launches[key][c] for c in counters)
+                   for key in launches}
+        return dict(name=name, route="cuda",
+                    source=f"locityper_tpu_torch/ops/csrc/{source}",
+                    replaces=replaces, launches=sum(by_path.values()),
+                    launches_by_path=by_path, **numbers(m), library_ms=None,
+                    **more)
 
+    long_rows = entry("align_banded", ["align_banded"], "align_banded.cu",
+                      "locityper_tpu/ops/align_pallas.py:301", k4)
+    long_rows["launches_by_path"] = {key: rec.n_align_long.get(key, 0)
+                                     for key in launches}
+    long_rows["launches"] = sum(long_rows["launches_by_path"].values())
     print(json.dumps({"kernels": [
-        entry("align_banded", "locityper_tpu_torch/ops/csrc/align_banded.cu",
-              "locityper_tpu/ops/align_pallas.py:370", k1),
-        entry("anneal_chains",
-              "locityper_tpu_torch/ops/csrc/anneal_chains.cu",
+        entry("align_banded", ["align_banded"], "align_banded.cu",
+              "locityper_tpu/ops/align_pallas.py:370", k1,
+              long_rows=long_rows),
+        entry("anneal_chains", ["anneal_chains"], "anneal_chains.cu",
               "locityper_tpu/ops/solver_pallas.py:381", k2,
               modes={mode: dict(numbers(m), moves=m["moves"])
-                     for mode, m in k2_modes.items()})]}), flush=True)
+                     for mode, m in k2_modes.items()}),
+        entry("minimizer_front", FRONT, "minimizer_front.cu",
+              "locityper_tpu/ops/recruit.py:358", k3["compact"],
+              entries={
+                  "compact": entry(FRONT[0], FRONT[:1], "minimizer_front.cu",
+                                   "locityper_tpu/ops/recruit.py:358",
+                                   k3["compact"]),
+                  "full": entry(FRONT[1], FRONT[1:], "minimizer_front.cu",
+                                "locityper_tpu/ops/recruit.py:316",
+                                k3["full"])})]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -31,14 +31,15 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "ops" / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-# --fmad=false: both kernels are held bit-for-bit against plain PyTorch
+# --fmad=false: the float kernels are held bit-for-bit against plain PyTorch
 # versions whose multiplies and adds round separately.
 COMMON_FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-shared",
                 "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-#: kernel name -> (source file, C launch function, argtypes)
+#: kernel name -> (source file, C launch function, argtypes).  A source may
+#: hold several launch functions: it is compiled once.
 KERNELS = {
     "align_banded": (
         "align_banded.cu", "align_banded_launch",
@@ -46,6 +47,12 @@ KERNELS = {
     "anneal_chains": (
         "anneal_chains.cu", "anneal_chains_launch",
         [_P] * 12 + [_I] * 9 + [ctypes.c_float] * 3 + [_L, _P]),
+    "minimizer_front_compact": (
+        "minimizer_front.cu", "minimizer_front_compact_launch",
+        [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
+    "minimizer_front_full": (
+        "minimizer_front.cu", "minimizer_front_full_launch",
+        [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -108,32 +115,33 @@ def load() -> _Lib:
         out_dir = build_dir()
         out_dir.mkdir(parents=True, exist_ok=True)
         procs, paths = {}, {}
-        for name, (src, _fn, _at) in KERNELS.items():
+        for src in sorted({src for src, _fn, _at in KERNELS.values()}):
             src_path = CSRC / src
             flags = (*ARCH_FLAGS, *COMMON_FLAGS)
             h = hashlib.sha256(src_path.read_bytes()
                                + " ".join(flags).encode()).hexdigest()[:16]
-            so = out_dir / f"{name}_{h}.so"
-            paths[name] = so
+            so = out_dir / f"{src_path.stem}_{h}.so"
+            paths[src] = so
             if so.exists():
                 continue
-            tmp = out_dir / f"{name}_{h}.{os.getpid()}.tmp.so"
+            tmp = out_dir / f"{src_path.stem}_{h}.{os.getpid()}.tmp.so"
             cmd = [_find_nvcc(), *flags, "-o", str(tmp), str(src_path)]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True), tmp, cmd)
-        for name, (proc, tmp, cmd) in procs.items():
+            procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), tmp, cmd)
+        for src, (proc, tmp, cmd) in procs.items():
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 for other, _t, _c in procs.values():
                     if other.poll() is None:
                         other.kill()
-                raise RuntimeError(f"nvcc failed for {name}:\n"
+                raise RuntimeError(f"nvcc failed for {src}:\n"
                                    f"$ {' '.join(cmd)}\n{out}")
-            os.replace(tmp, paths[name])
+            os.replace(tmp, paths[src])
+        dlls = {src: ctypes.CDLL(str(so)) for src, so in paths.items()}
         fns = {}
-        for name, (_src, fn_name, argtypes) in KERNELS.items():
-            dll = ctypes.CDLL(str(paths[name]))
+        for src, fn_name, argtypes in KERNELS.values():
+            dll = dlls[src]
             fn = getattr(dll, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

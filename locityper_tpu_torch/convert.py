@@ -77,6 +77,19 @@ def _locus_data(o) -> LocusData:
                      dist)
 
 
+def device_index_from_reference(o):
+    """The reference package's `DeviceIndex` (numpy fields) as this
+    package's: the same sorted keys and locus bitmaps, so that both
+    recruiters look reads up in identical tables."""
+    from .ops.recruit import DeviceIndex
+    u32 = np.uint32
+    return DeviceIndex(
+        keys=np.array(o.keys, u32), fw_mask=np.array(o.fw_mask, u32),
+        bw_mask=np.array(o.bw_mask, u32), rare_mask=np.array(o.rare_mask, u32),
+        n_loci=int(o.n_loci), n_groups=int(o.n_groups), k=int(o.k),
+        w=int(o.w), frac_p=int(o.frac_p), frac_q=int(o.frac_q))
+
+
 _CONVERTERS = {
     "LocusTensors": _locus_tensors,
     "ContigInfoPack": _contig_info_pack,
@@ -86,13 +99,15 @@ _CONVERTERS = {
     "KmerCounts": _kmer_counts,
     "BgDistr": _bg_distr,
     "LocusData": _locus_data,
+    "DeviceIndex": device_index_from_reference,
 }
 
 
 def from_reference(obj):
     """Returns this package's counterpart of a reference-package object
     (LocusTensors, ContigInfoPack, AllAlignments, MateAlnTable, ContigSet,
-    KmerCounts, BgDistr or LocusData), chosen by the object's class name."""
+    KmerCounts, BgDistr, LocusData or DeviceIndex), chosen by the object's
+    class name."""
     conv = _CONVERTERS.get(type(obj).__name__)
     if conv is None:
         raise TypeError(f"from_reference: no counterpart for "

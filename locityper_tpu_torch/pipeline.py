@@ -34,11 +34,16 @@ class LocusData:
     dist_matrix: np.ndarray | None = None
 
 
-def recruit_reads(loci: dict, read_iter, recruit_params: RecruitParams):
+def recruit_reads(loci: dict, read_iter, recruit_params: RecruitParams,
+                  pad: int = 0):
     """Recruits all reads against all loci at once with the host engine
-    (seq/recruit.py; genotype.rs:931-975).
+    (seq/recruit.py; genotype.rs:931-975), one read at a time: the oracle
+    that the device recruiter (commands/genotype.py) is tested against.
 
     loci: {name: LocusData}; read_iter yields (name, codes1, codes2 | None).
+    pad: match every read with this many N codes appended, as a device
+    batch sees a read that is shorter than its row (`minimizer_w - 1` or
+    more saturates the effect); the reads are returned unpadded.
     Returns {locus: (read_pairs, names)} in `loci` order."""
     index = TargetIndex(recruit_params)
     order = list(loci)
@@ -46,8 +51,11 @@ def recruit_reads(loci: dict, read_iter, recruit_params: RecruitParams):
         index.add_locus(loci[name].contig_set, loci[name].kmer_counts)
     index.finalize()
     out = {name: ([], []) for name in order}
+    tail = np.full(pad, 4, np.int8)
     for name, c1, c2 in read_iter:
-        for locus_ix in recruit_any(index, c1, c2):
+        m1 = np.concatenate([c1, tail]) if pad else c1
+        m2 = np.concatenate([c2, tail]) if pad and c2 is not None else c2
+        for locus_ix in recruit_any(index, m1, m2):
             pairs, names = out[order[locus_ix]]
             pairs.append((c1, c2))
             names.append(name)

@@ -13,7 +13,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from locityper_tpu.ops import align as JA
-from locityper_tpu.ops.align_pallas import align_batch_pallas
+from locityper_tpu.ops.align_pallas import (align_batch_pallas,
+                                            align_batch_pallas_stream)
 from locityper_tpu.sim import ErrorModel, random_genome
 from locityper_tpu_torch.ops import align as TA
 
@@ -87,6 +88,33 @@ def test_reference_matches_pallas_kernel(B, L, band, hard):
     if hard:
         assert (want["n_del"] >= 8).any(), "no long deletion was exercised"
         assert (lens < L - 16).any()
+
+
+@pytest.mark.parametrize("L", [2048, 8704])
+def test_reference_matches_row_streamed_pallas_kernel(L):
+    """Long rows.  The JAX package switches to a second kernel there, which
+    streams the read rows in blocks of 512 with the DP state carried in
+    scratch memory (`align_batch_pallas_stream`, picked for L > 8192); the
+    port keeps one kernel with no row cap.  The interpreter does take the
+    stream kernel's scratch state, so the plain version is held against it
+    directly: 128 jobs (one tile, the fewest it takes) at band 160, at the
+    shape of the package's own TPU-gated test and at 17 blocks, above 8,192
+    rows.  Tolerances as above; observed here: 0 jobs differ, scores equal
+    to the bit."""
+    rng = np.random.default_rng(5)
+    B, band = 128, 160
+    reads, lens, wins = make_batch(rng, B, L, band, hard=True)
+    got = run_torch(reads, lens, wins, band)
+    with pltpu.force_tpu_interpret_mode():
+        want = {k: np.asarray(v) for k, v in align_batch_pallas_stream(
+            reads, lens, wins, SCORE_VEC, band=band, block_rows=512).items()}
+    np.testing.assert_allclose(got["score"], want["score"], atol=2e-3)
+    same = np.ones(B, bool)
+    for k in INT_KEYS:
+        same &= got[k] == want[k]
+    assert same.mean() >= 0.99, f"{(~same).sum()} of {B} jobs differ"
+    assert got["valid"].all() and lens.max() == L
+    assert (want["n_del"] >= 8).any(), "no long deletion was exercised"
 
 
 def test_reference_vs_xla_scan_kernel():

@@ -70,3 +70,37 @@ def test_anneal_kernel_equals_plain_version(card):
     for a, b in zip(TC.anneal_chains(*args, **kw),
                     TC.anneal_chains_reference(*args, **kw)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,L", [(1, 15), (257, 152), (4096, 192),
+                                 (64, 16384)])
+def test_minimizer_front_kernel_equals_plain_version(card, B, L):
+    """Both entries of minimizer_front.cu, bit-identical on every output:
+    reads with N, a row of one repeated base (every hash ties), a run of N,
+    a truncating S, rows that span many tiles."""
+    from locityper_tpu_torch.ops import recruit as TR
+    rng = np.random.default_rng(B + L)
+    reads = rng.integers(0, 4, (B, L)).astype(np.int8)
+    reads[rng.random((B, L)) < 0.01] = 4
+    reads[B // 2] = 3
+    reads[B // 3, L // 4:L // 2] = 4
+    reads = torch.from_numpy(reads).to(card)
+    k, w = 15, 10
+    got = TR.minimizer_front(reads, k, w)
+    want = TR.minimizer_front_reference(reads, k, w)
+    for name, a, b in zip(("hs", "is_fw", "mask"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    P = L - k + 1
+    for S in (TR._front_S(P, w), max(P // 16, 1), P + 5):
+        got = TR.minimizer_front(reads, k, w, S)
+        want = TR.minimizer_front_reference(reads, k, w, S)
+        for name, a, b in zip(("hs", "is_fw", "mask", "total"), got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, S)
+    for k2, w2 in ((11, 5), (7, 1), (15, 40)):
+        if L < k2:
+            continue
+        for S in (None, 12):
+            got = TR.minimizer_front(reads, k2, w2, S)
+            want = TR.minimizer_front_reference(reads, k2, w2, S)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (k2, w2, S)

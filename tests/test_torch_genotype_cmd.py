@@ -1,0 +1,567 @@
+"""The second slice of the port as a whole: the command line, FASTQ to
+res.json.gz, against the JAX package's command line on the same files.
+
+One world (the world of tests/test_cli.py with a second locus, so that the
+panel-batched align and solve paths run): the JAX package's `add` and
+`preproc` write the database and the background distributions once, and both
+packages' `genotype` read them — that directory and `bg/distr.json.gz` are
+the state carried across.  The port runs with `--device cpu` (the plain
+PyTorch versions of the kernels).
+
+Recruitment is integers only: the recruited reads are compared for equality,
+names and sequences, in order.  The two annealers draw different random
+numbers, so calls are compared for equality and likelihoods within the
+tolerance of tests/test_torch_pipeline.py.
+"""
+import gzip
+import json
+import shutil
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from locityper_tpu import cli as jcli
+from locityper_tpu import sim
+from locityper_tpu.seq import bam as jbam
+from locityper_tpu.seq import fastx
+from locityper_tpu.utils.io import smart_create
+from locityper_tpu_torch import cli as tcli
+from locityper_tpu_torch import pipeline as tpipeline
+from locityper_tpu_torch.commands import genotype as TG
+from locityper_tpu_torch.seq.recruit import RecruitParams
+
+torch.set_num_threads(1)        # the suite runs several workers side by side
+
+SCHEME = ["-S", "greedy:i=5k,a=1", "anneal:i=8,a=8,n=3000,p=2000"]
+LIGHT = ["-S", "greedy:i=5k,a=1", "anneal:i=4,a=4,n=1000,p=500"]
+LOCI = ("GENE1", "GENE2")
+
+
+def torch_cli(*argv):
+    return tcli.main(["--device", "cpu", *map(str, argv)])
+
+
+def read_json(path):
+    with gzip.open(path, "rt") as f:
+        return json.load(f)
+
+
+def fastq_records(path):
+    return [(r.name, r.seq.tobytes()) for r in fastx.read_fastq(path)]
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Reference genome with two embedded loci, their haplotype panels, a
+    paired WGS sample of the true genotypes plus background; database and
+    background distributions written by the JAX package's CLI."""
+    root = tmp_path_factory.mktemp("torchcli")
+    rng = np.random.default_rng(123)
+    loci = [sim.simulate_locus(rng, name, length=4000, n_haps=5,
+                               divergence=0.015) for name in LOCI]
+    flanks = [sim.random_genome(rng, n) for n in (120_000, 20_000, 60_000)]
+    genome = np.concatenate([flanks[0], loci[0].haplotypes[0], flanks[1],
+                             loci[1].haplotypes[0], flanks[2]])
+    with open(root / "ref.fa", "w") as f:
+        fastx.write_fasta(f, "chr1", genome)
+    s1 = flanks[0].size
+    s2 = s1 + 4000 + flanks[1].size
+    (root / "loci.bed").write_text(
+        f"chr1\t{s1}\t{s1 + loci[0].haplotypes[0].size}\tGENE1\n"
+        f"chr1\t{s2}\t{s2 + loci[1].haplotypes[0].size}\tGENE2\n")
+    for locus in loci:
+        with open(root / f"haps_{locus.name}.fa", "w") as f:
+            for name, seq in zip(locus.hap_names, locus.haplotypes):
+                fastx.write_fasta(f, name, seq)
+    err = sim.ErrorModel(0.002, 0.0002, 0.0002)
+    pools = [sim.simulate_paired_reads(
+        rng, [lc.haplotypes[i] for i in lc.true_genotype], depth=15.0,
+        errors=err, prefix=lc.name) for lc in loci]
+    pools.append(sim.simulate_paired_reads(rng, [genome], depth=4.0,
+                                           errors=err, prefix="bg"))
+    names = [n for p in pools for n in p.names]
+    all1 = [r for p in pools for r in p.reads1]
+    all2 = [r for p in pools for r in p.reads2]
+    order = rng.permutation(len(names))
+    r1, r2 = root / "reads_1.fq.gz", root / "reads_2.fq.gz"
+    with smart_create(r1) as f1, smart_create(r2) as f2:
+        for i in order:
+            fastx.write_fastq(f1, fastx.Read(names[i], all1[i]))
+            fastx.write_fastq(f2, fastx.Read(names[i], all2[i]))
+    db, prep = root / "db", root / "sample"
+    assert jcli.main(["add", "-d", str(db), "-r", str(root / "ref.fa"),
+                      "-l", str(root / "loci.bed"),
+                      "-s", str(root / "haps_{}.fa")]) == 0
+    assert jcli.main(["preproc", "-i", str(r1), str(r2),
+                      "-r", str(root / "ref.fa"), "-o", str(prep),
+                      "-b", "chr1:10000-110000", "--max-reads", "8000"]) == 0
+    truth = {lc.name: sorted(lc.hap_names[i] for i in lc.true_genotype)
+             for lc in loci}
+    return SimpleNamespace(
+        root=root, loci=loci, r1=r1, r2=r2, db=db, prep=prep, truth=truth,
+        reads=[(names[i], all1[i], all2[i]) for i in order],
+        base=["-i", str(r1), str(r2), "-d", str(db), "-p", str(prep)])
+
+
+@pytest.fixture(scope="module")
+def both(world):
+    """Both command lines, twice each: `--stop-after recruit`, then the full
+    run, which resumes from the reads.fq.gz checkpoints."""
+    j_out, t_out = world.root / "j_out", world.root / "t_out"
+    args = world.base + SCHEME + ["--seed", "5"]
+    assert jcli.main(["genotype", *args, "-o", str(j_out),
+                      "--stop-after", "recruit"]) == 0
+    assert torch_cli("genotype", *args, "-o", t_out,
+                     "--stop-after", "recruit") == 0
+    recruited = {}
+    for name in LOCI:
+        j_fq = j_out / "loci" / name / "reads.fq.gz"
+        t_fq = t_out / "loci" / name / "reads.fq.gz"
+        assert j_fq.exists() and t_fq.exists()
+        assert not (t_out / "loci" / name / "res.json.gz").exists()
+        recruited[name] = (fastq_records(j_fq), fastq_records(t_fq))
+    assert jcli.main(["genotype", *args, "-o", str(j_out)]) == 0
+    assert torch_cli("genotype", *args, "-o", t_out) == 0
+    return SimpleNamespace(j_out=j_out, t_out=t_out, recruited=recruited)
+
+
+def test_recruited_reads_equal_in_order(world, both):
+    for name in LOCI:
+        j_recs, t_recs = both.recruited[name]
+        assert t_recs == j_recs, name
+        # The rest are background reads drawn from the locus's own copy
+        # in the genome.
+        n_own = sum(n.startswith(name) for n, _ in t_recs)
+        assert n_own > 300 and n_own > 0.8 * len(t_recs)
+
+
+def test_calls_equal_truth_and_reference(world, both):
+    """Likelihood tolerance, as in tests/test_torch_pipeline.py: 4 standard
+    errors of the two means over their 8 attempts, plus 1.0 ln units.
+    res.json.gz stores `lik_mean` and the variance (`lik_sd`) divided by
+    ln 10; both are taken back to ln units first."""
+    ln10 = float(np.log(10.0))
+    for name in LOCI:
+        ldir = both.t_out / "loci" / name
+        res = read_json(ldir / "res.json.gz")
+        j_res = read_json(both.j_out / "loci" / name / "res.json.gz")
+        assert sorted(res["genotype"].split(",")) == world.truth[name], res
+        assert res["genotype"] == j_res["genotype"]
+        assert set(res) == set(j_res)
+        assert set(res["options"][0]) == set(j_res["options"][0])
+        assert res["total_reads"] == j_res["total_reads"]
+        assert res["unexpl_reads"] == j_res["unexpl_reads"]
+        a, b = res["options"][0], j_res["options"][0]
+        assert a["genotype"] == b["genotype"]
+        limit = 4.0 * np.sqrt(a["lik_sd"] * ln10 / 8
+                              + b["lik_sd"] * ln10 / 8) + 1.0
+        gap = abs(a["lik_mean"] - b["lik_mean"]) * ln10
+        print(f"{name}: lik_mean gap {gap:.3f} ln units, limit {limit:.3f}")
+        assert gap <= limit
+        assert res["quality"] > 10 and j_res["quality"] > 10
+        assert (ldir / "success").exists()
+        # The finished locus drops its checkpoint.
+        assert not (ldir / "reads.fq.gz").exists()
+
+
+def test_second_run_resumed_from_the_checkpoint(world, tmp_path, monkeypatch):
+    out = tmp_path / "ckpt"
+    args = world.base + LIGHT + ["--seed", "5", "-o", str(out)]
+    assert torch_cli("genotype", *args, "--stop-after", "recruit") == 0
+    ck = out / "loci" / "GENE1" / "reads.fq.gz"
+    pairs, names = TG._load_recruited(ck.parent)
+    assert len(pairs) == len(names) > 50
+    assert all(c2 is not None for _, c2 in pairs)
+
+    def no_recruit(*a, **k):
+        raise AssertionError("recruitment ran despite the checkpoint")
+
+    monkeypatch.setattr(TG, "recruit_reads_fast", no_recruit)
+    monkeypatch.setattr(TG, "recruit_reads", no_recruit)
+    assert torch_cli("genotype", *args) == 0
+    for name in LOCI:
+        res = read_json(out / "loci" / name / "res.json.gz")
+        assert sorted(res["genotype"].split(",")) == world.truth[name]
+    assert not ck.exists()
+    monkeypatch.undo()
+    # Same parameters: a clean skip.  A changed knob aborts with guidance;
+    # --rerun all starts clean and adopts the new parameters.
+    assert torch_cli("genotype", *args) == 0
+    assert torch_cli("genotype", *args, "--skew", "0.7") == 1
+    assert torch_cli("genotype", *args, "--skew", "0.7", "--rerun",
+                     "all") == 0
+    assert torch_cli("genotype", *args, "--skew", "0.7") == 0
+
+
+def test_in_list_leave_out_and_knobs(world, tmp_path):
+    lst = tmp_path / "inputs.txt"
+    lst.write_text(f"{world.r1}\n{world.r2}\n")
+    locus = world.loci[0]
+    lo = [locus.hap_names[i] for i in range(5)
+          if i not in locus.true_genotype][:2]
+    out = tmp_path / "out"
+    assert torch_cli("genotype", "-I", lst, "-d", world.db, "-p", world.prep,
+                     "-o", out, *LIGHT, "--loci", "GENE1", "--leave-out",
+                     *lo, "--skew", "0.8", "-D", "2.5", "--seed", "5") == 0
+    res = read_json(out / "loci" / "GENE1" / "res.json.gz")
+    called = set(res["genotype"].split(","))
+    assert not (called & set(lo))
+    assert sorted(called) == world.truth["GENE1"]
+    assert not (out / "loci" / "GENE2").exists()
+    # Leaving out every haplotype is a user error: one line, code 1.
+    assert torch_cli("genotype", *world.base, "-o", tmp_path / "o2",
+                     "--loci", "GENE1", "--leave-out",
+                     *locus.hap_names) == 1
+    assert torch_cli("genotype", "-i", tmp_path / "x.cram", "-d", world.db,
+                     "-p", world.prep, "-o", tmp_path / "o3") == 1
+
+
+@pytest.mark.parametrize("extra", [["--stop-after", "map"],
+                                   ["--out-sams", "1"], ["--out-bams", "2"]])
+def test_unported_outputs_raise(world, tmp_path, extra):
+    with pytest.raises(NotImplementedError, match="A11"):
+        torch_cli("genotype", *world.base, "-o", tmp_path / "o", *extra)
+    assert not (tmp_path / "o" / "loci").exists()
+
+
+def test_preproc_raises(world, tmp_path):
+    with pytest.raises(NotImplementedError, match="A9"):
+        torch_cli("preproc", "-i", world.r1, world.r2, "-r",
+                  world.root / "ref.fa", "-o", tmp_path / "s", "-b",
+                  "chr1:10000-110000", "--max-reads", "8000")
+
+
+@pytest.mark.parametrize("where", ["align", "solve"])
+def test_panel_failure_raises_and_does_not_fall_back(world, tmp_path,
+                                                     monkeypatch, where):
+    """The reference package catches any exception of the panel-batched
+    align and solve calls and carries on per locus; the port raises."""
+    def boom(*a, **k):
+        raise RuntimeError(f"simulated failure in the panel {where}")
+
+    if where == "align":
+        from locityper_tpu_torch.model import locs
+        monkeypatch.setattr(locs, "build_all_alignments_panel", boom)
+    else:
+        monkeypatch.setattr(tpipeline, "genotype_panel", boom)
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match=f"panel {where}"):
+        torch_cli("genotype", *world.base, "-o", out, *LIGHT)
+    for name in LOCI:
+        assert not (out / "loci" / name / "res.json.gz").exists()
+        assert (out / "loci" / name / "reads.fq.gz").exists()
+
+
+def test_per_locus_failure_is_counted(world, tmp_path, monkeypatch):
+    """The per-locus `try` stays: it logs, and the command returns 1."""
+    def boom(*a, **k):
+        raise RuntimeError("simulated crash after recruitment")
+
+    monkeypatch.setattr(TG, "genotype_locus", boom)
+    out = tmp_path / "out"
+    assert torch_cli("genotype", *world.base, "-o", out, *LIGHT,
+                     "--loci", "GENE2") == 1
+    assert (out / "loci" / "GENE2" / "reads.fq.gz").exists()
+    assert not (out / "loci" / "GENE2" / "success").exists()
+
+
+def test_cuda_is_the_default_device(world, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device|CUDA"):
+        tcli.main(["genotype", *world.base, "-o", str(tmp_path / "o")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcli.main(["recruit", "-i", str(world.r1), str(world.r2), "-s",
+                   str(world.root / "haps_GENE1.fa"), "-o",
+                   str(tmp_path / "r.fq")])
+
+
+def test_profile_writes_a_chrome_trace(world, tmp_path):
+    out, prof = tmp_path / "out", tmp_path / "prof"
+    assert torch_cli("genotype", *world.base, "-o", out, "--loci", "GENE1",
+                     "--stop-after", "recruit", "--profile", prof) == 0
+    trace = json.loads((prof / "trace.json").read_text())
+    assert trace["traceEvents"]
+
+
+# --- recruitment entries against the host oracle ----------------------------
+
+def load_loci(world):
+    return {name: TG.load_locus(world.db, name) for name in LOCI}
+
+
+def assert_same_recruits(a, b, ordered=True):
+    for name in a:
+        (pa, na), (pb, nb) = a[name], b[name]
+        if not ordered:
+            ia, ib = np.argsort(na, kind="stable"), np.argsort(nb,
+                                                               kind="stable")
+            pa, na = [pa[i] for i in ia], [na[i] for i in ia]
+            pb, nb = [pb[i] for i in ib], [nb[i] for i in ib]
+        assert na == nb, name
+        for (a1, a2), (b1, b2) in zip(pa, pb):
+            np.testing.assert_array_equal(a1, b1)
+            assert (a2 is None) == (b2 is None)
+            if a2 is not None:
+                np.testing.assert_array_equal(a2, b2)
+
+
+PAD = 9     # minimizer_w - 1: what a device row's padding adds to a read
+
+
+def test_recruit_entries_equal_the_host_oracle(world):
+    """`recruit_reads_fast` (FASTQ, native parser, device batches) and
+    `recruit_reads` (iterator, device pair batches) equal
+    `pipeline.recruit_reads`, the per-read host engine, on reads padded as
+    a device row pads them; `use_device=False` is the unpadded host engine.
+    The padding moves one pair of 3,574 here (in the reference package
+    too): a window at the read's end runs into the N codes behind it."""
+    loci = load_loci(world)
+    rp = RecruitParams(match_frac=0.6)
+    oracle = tpipeline.recruit_reads(loci, iter(world.reads), rp, pad=PAD)
+    assert all(len(oracle[n][1]) > 300 for n in LOCI)
+    unpadded = tpipeline.recruit_reads(loci, iter(world.reads), rp)
+    for n in LOCI:
+        assert len(set(unpadded[n][1]) ^ set(oracle[n][1])) <= 2
+    fast, speed = TG.recruit_reads_fast(loci, world.r1, world.r2, rp,
+                                        batch=4096, device="cpu")
+    assert speed > 0
+    assert_same_recruits(fast, oracle)
+    it, _ = TG.recruit_reads(loci, iter(world.reads), rp, batch=3000,
+                             device="cpu")
+    assert_same_recruits(it, oracle)
+    host, _ = TG.recruit_reads(loci, iter(world.reads), rp, use_device=False)
+    assert_same_recruits(host, unpadded)
+    # Subsampling draws per batch in one entry and per read in the other:
+    # each is reproducible, and keeps roughly the asked share.
+    stats = {}
+    sub1, _ = TG.recruit_reads_fast(loci, world.r1, world.r2, rp, batch=4096,
+                                    subsample=0.5, seed=3, stats=stats,
+                                    device="cpu")
+    sub2, _ = TG.recruit_reads_fast(loci, world.r1, world.r2, rp, batch=4096,
+                                    subsample=0.5, seed=3, device="cpu")
+    assert_same_recruits(sub1, sub2)
+    assert stats["records"] == len(world.reads)
+    share = len(sub1["GENE1"][1]) / len(oracle["GENE1"][1])
+    assert 0.35 < share < 0.65
+    assert set(sub1["GENE1"][1]) <= set(oracle["GENE1"][1])
+
+
+def test_single_and_mixed_reads_equal_the_host_oracle(world):
+    """Short single reads go through device batches of their own; long
+    pairs stay on the host engine; flushes of uneven sizes."""
+    loci = load_loci(world)
+    rp = RecruitParams(match_frac=0.6)
+    reads = [(n, a, None) for n, a, _ in world.reads[:1800]]
+    reads += world.reads[1800:]
+    oracle = tpipeline.recruit_reads(loci, iter(reads), rp, pad=PAD)
+    got, _ = TG.recruit_reads(loci, iter(reads), rp, batch=700, device="cpu")
+    assert_same_recruits(got, oracle, ordered=False)
+    assert any(p[1] is None for p in got["GENE1"][0])
+    assert any(p[1] is not None for p in got["GENE1"][0])
+
+
+@pytest.fixture(scope="module")
+def world300(tmp_path_factory):
+    """One locus and a 300 bp paired sample (tests/test_readwidth.py)."""
+    from locityper_tpu_torch.seq.contigs import ContigSet
+    from locityper_tpu_torch.seq.counts import (GenomeKmerCounter,
+                                                off_target_counts)
+    root = tmp_path_factory.mktemp("w300")
+    rng = np.random.default_rng(77)
+    locus = sim.simulate_locus(rng, "G", length=4000, n_haps=4,
+                               divergence=0.02)
+    genome = np.concatenate([sim.random_genome(rng, 30_000),
+                             locus.haplotypes[0],
+                             sim.random_genome(rng, 30_000)])
+    counter = GenomeKmerCounter(25)
+    counter.add_seq(genome)
+    counter.finalize()
+    kc = off_target_counts(counter, locus.haplotypes, locus.haplotypes[0])
+    cset = ContigSet("G", locus.hap_names, locus.haplotypes)
+    true_haps = [locus.haplotypes[i] for i in locus.true_genotype]
+    loc = sim.simulate_paired_reads(rng, true_haps, depth=6, read_len=300,
+                                    insert_mean=700, insert_sd=60,
+                                    prefix="loc")
+    bg = sim.simulate_paired_reads(rng, [genome[:20_000]], depth=1,
+                                   read_len=300, insert_mean=700,
+                                   insert_sd=60, prefix="bg")
+    reads = list(zip(loc.names + bg.names, loc.reads1 + bg.reads1,
+                     loc.reads2 + bg.reads2))
+    r1, r2 = root / "r_1.fq.gz", root / "r_2.fq.gz"
+    with smart_create(r1) as f1, smart_create(r2) as f2:
+        for n, a, b in reads:
+            fastx.write_fastq(f1, fastx.Read(n, a))
+            fastx.write_fastq(f2, fastx.Read(n, b))
+    loci = {"G": SimpleNamespace(contig_set=cset, kmer_counts=kc)}
+    return SimpleNamespace(loci=loci, r1=r1, r2=r2, reads=reads)
+
+
+def test_fast_path_at_300bp_and_midstream_restart(world300):
+    """The batch width follows the files; a too-small starting width
+    restarts the pass at the wider one, and no read is ever clipped."""
+    w = world300
+    rp = RecruitParams(match_frac=0.6)
+    oracle = tpipeline.recruit_reads(w.loci, iter(w.reads), rp, pad=PAD)
+    assert len(oracle["G"][1]) > 10
+    assert max(a.size for _, a, _ in w.reads) >= 300
+    auto, _ = TG.recruit_reads_fast(w.loci, w.r1, w.r2, rp, batch=64,
+                                    device="cpu")
+    assert_same_recruits(auto, oracle)
+    restarted, _ = TG.recruit_reads_fast(w.loci, w.r1, w.r2, rp, batch=64,
+                                         max_len=192, device="cpu")
+    assert_same_recruits(restarted, oracle)
+
+
+# --- the HiFi flow ------------------------------------------------------------
+
+def test_hifi_flow_equals_reference(tmp_path):
+    """tests/test_cli_longread.py through both command lines: long single
+    reads are recruited in long device batches and aligned at band 160."""
+    root = tmp_path
+    rng = np.random.default_rng(42)
+    locus = sim.simulate_locus(rng, "LRG", length=6000, n_haps=4,
+                               divergence=0.012)
+    left = sim.random_genome(rng, 50_000)
+    right = sim.random_genome(rng, 50_000)
+    genome = np.concatenate([left, locus.haplotypes[0], right])
+    with open(root / "ref.fa", "w") as f:
+        fastx.write_fasta(f, "chr1", genome)
+    (root / "loci.bed").write_text(
+        f"chr1\t{left.size}\t{left.size + locus.haplotypes[0].size}\tLRG\n")
+    with open(root / "haps_LRG.fa", "w") as f:
+        for name, seq in zip(locus.hap_names, locus.haplotypes):
+            fastx.write_fasta(f, name, seq)
+    err = sim.ErrorModel(mismatch=0.003, insertion=0.002, deletion=0.002)
+    true_haps = [locus.haplotypes[i] for i in locus.true_genotype]
+    locus_reads = sim.simulate_single_reads(
+        rng, true_haps, depth=10.0, read_len_mean=2500, read_len_sd=300,
+        errors=err, prefix="loc")
+    bg_reads = sim.simulate_single_reads(
+        rng, [left, right], depth=4.0, read_len_mean=2500, read_len_sd=300,
+        errors=err, prefix="bg")
+    with smart_create(root / "reads.fq.gz") as f:
+        for nm, r in zip(locus_reads.names + bg_reads.names,
+                         locus_reads.reads1 + bg_reads.reads1):
+            fastx.write_fastq(f, fastx.Read(nm, r))
+    assert jcli.main(["add", "-d", str(root / "db"), "-r",
+                      str(root / "ref.fa"), "-l", str(root / "loci.bed"),
+                      "-s", str(root / "haps_{}.fa")]) == 0
+    assert jcli.main(["preproc", "-i", str(root / "reads.fq.gz"),
+                      "-r", str(root / "ref.fa"), "-o", str(root / "sample"),
+                      "--tech", "hifi", "-b", "chr1:2000-100000",
+                      "--max-reads", "2000"]) == 0
+    args = ["-i", str(root / "reads.fq.gz"), "-d", str(root / "db"),
+            "-p", str(root / "sample"), "-S", "greedy:i=5k,a=1",
+            "anneal:i=4,a=4,n=1500,p=800", "--seed", "7"]
+    assert jcli.main(["genotype", *args, "-o", str(root / "j_out"),
+                      "--stop-after", "recruit"]) == 0
+    assert torch_cli("genotype", *args, "-o", root / "t_out",
+                     "--stop-after", "recruit") == 0
+    j_recs = fastq_records(root / "j_out" / "loci" / "LRG" / "reads.fq.gz")
+    t_recs = fastq_records(root / "t_out" / "loci" / "LRG" / "reads.fq.gz")
+    # Long batches are flushed by length class, so compare as sorted lists.
+    assert sorted(t_recs) == sorted(j_recs) and len(t_recs) > 20
+    assert all(n.startswith("loc") for n, _ in t_recs)
+    assert torch_cli("genotype", *args, "-o", root / "t_out") == 0
+    res = read_json(root / "t_out" / "loci" / "LRG" / "res.json.gz")
+    truth = sorted(locus.hap_names[i] for i in locus.true_genotype)
+    assert sorted(res["genotype"].split(",")) == truth, res
+
+
+# --- the other subcommands ----------------------------------------------------
+
+def text_of(path):
+    raw = open(path, "rb").read()
+    return gzip.decompress(raw) if raw[:2] == b"\x1f\x8b" else raw
+
+
+def test_recruit_subcommand_equals_reference(world, tmp_path):
+    j_out, t_out = tmp_path / "j.fq", tmp_path / "t.fq"
+    args = ["-i", str(world.r1), str(world.r2), "-s",
+            str(world.root / "haps_GENE1.fa"),
+            str(world.root / "haps_GENE2.fa"), "-x", "illumina"]
+    assert jcli.main(["recruit", *args, "-o", str(j_out)]) == 0
+    assert torch_cli("recruit", *args, "-o", t_out) == 0
+    assert text_of(t_out) == text_of(j_out)
+    assert len(fastq_records(t_out)) > 1000
+    assert torch_cli("recruit", "-i", "x", "-s", "y", "-o", "z", "-x",
+                     "bogus") == 1
+
+
+def test_align_and_paf_vcf_subcommands_equal_reference(world, tmp_path):
+    haps = str(world.root / "haps_GENE1.fa")
+    j_paf, t_paf = tmp_path / "j.paf", tmp_path / "t.paf"
+    assert jcli.main(["align", "-i", haps, "-o", str(j_paf),
+                      "--max-div", "1.0"]) == 0
+    assert torch_cli("align", "-i", haps, "-o", t_paf, "--max-div",
+                     "1.0") == 0
+    assert text_of(t_paf) == text_of(j_paf)
+    assert len(text_of(t_paf).splitlines()) == 10
+    j_vcf, t_vcf = tmp_path / "j.vcf", tmp_path / "t.vcf"
+    assert jcli.main(["paf-vcf", "-i", str(j_paf), "-q", haps, "-t", haps,
+                      "-o", str(j_vcf)]) == 0
+    assert torch_cli("paf-vcf", "-i", t_paf, "-q", haps, "-t", haps,
+                     "-o", t_vcf) == 0
+    assert text_of(t_vcf) == text_of(j_vcf)
+    assert sum(not l.startswith(b"#")
+               for l in text_of(t_vcf).splitlines()) > 100
+
+
+def test_prune_and_add_subcommands_equal_reference(world, tmp_path):
+    j_db, t_db = tmp_path / "j_db", tmp_path / "t_db"
+    shutil.copytree(world.db, j_db)
+    shutil.copytree(world.db, t_db)
+    assert jcli.main(["prune", "-d", str(j_db), "-n", "2"]) == 0
+    assert torch_cli("prune", "-d", t_db, "-n", "2") == 0
+    for name in LOCI:
+        a = text_of(t_db / "loci" / name / "haplotypes.fa.gz")
+        assert a == text_of(j_db / "loci" / name / "haplotypes.fa.gz")
+        assert a.count(b">") == 2
+    # `add` writes the same database as the reference package's.
+    t_add = tmp_path / "t_add"
+    assert torch_cli("add", "-d", t_add, "-r", world.root / "ref.fa", "-l",
+                     world.root / "loci.bed", "-s",
+                     world.root / "haps_{}.fa") == 0
+    for name in LOCI:
+        for fn in ("haplotypes.fa.gz", "ref.bed"):
+            assert text_of(t_add / "loci" / name / fn) == \
+                text_of(world.db / "loci" / name / fn), (name, fn)
+        a = np.load(t_add / "loci" / name / "kmers.npz")
+        b = np.load(world.db / "loci" / name / "kmers.npz")
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
+        np.testing.assert_array_equal(
+            np.load(t_add / "loci" / name / "distances.npz")["div"],
+            np.load(world.db / "loci" / name / "distances.npz")["div"])
+
+
+def test_index_subcommand_and_bam_input(world, tmp_path):
+    """`index` writes the same .bai; a BAM of the sample's first pairs goes
+    through `genotype`'s iterator entry (`recruit_reads`)."""
+    reads = world.reads[:3000]
+    for path in (tmp_path / "j.bam", tmp_path / "t.bam"):
+        with jbam.BamWriter(path, ["chr1"], [300_000]) as w:
+            for i, (name, c1, c2) in enumerate(reads):
+                w.write(name, jbam.FLAG_PAIRED | jbam.FLAG_MATE1, c1,
+                        ref_id=0, pos=10 * i)
+                w.write(name, jbam.FLAG_PAIRED | jbam.FLAG_MATE2, c2,
+                        ref_id=0, pos=10 * i + 5)
+    assert jcli.main(["index", str(tmp_path / "j.bam")]) == 0
+    assert torch_cli("index", tmp_path / "t.bam") == 0
+    assert open(tmp_path / "t.bam.bai", "rb").read() == \
+        open(tmp_path / "j.bam.bai", "rb").read()
+    (tmp_path / "t.bam.bai").unlink()           # full scan, not the index
+    out = tmp_path / "out"
+    assert torch_cli("genotype", "-i", tmp_path / "t.bam", "-d", world.db,
+                     "-p", world.prep, "-o", out, "--stop-after",
+                     "recruit") == 0
+    loci = load_loci(world)
+    rp = RecruitParams(match_frac=0.5)      # the CLI's default for pairs
+    oracle = tpipeline.recruit_reads(loci, iter(reads), rp, pad=PAD)
+    for name in LOCI:
+        pairs, names = TG._load_recruited(out / "loci" / name)
+        assert names == oracle[name][1] and len(names) > 20

@@ -2,8 +2,10 @@
 
 A subprocess poisons `sys.modules["jax"]` and `sys.modules["locityper_tpu"]`,
 imports every module of `locityper_tpu_torch` and genotypes a tiny locus on
-`device="cpu"`; the sources of the package and of `chip_smoke.py` are also
-searched for such imports.
+`device="cpu"`, from two FASTQ files through the device recruiter; another
+runs `python -m locityper_tpu_torch.cli --help` poisoned the same way; the
+sources of the package and of `chip_smoke.py` are also searched for such
+imports.
 """
 import pkgutil
 import re
@@ -32,6 +34,12 @@ names = [m.name for m in pkgutil.walk_packages(
     if not m.name.endswith(".libkernels")]      # the ctypes host library
 for n in names:
     importlib.import_module(n)
+for n in ("cli", "commands.genotype", "commands.recruit", "commands.add",
+          "commands.align", "commands.boundary", "commands.index",
+          "commands.paf_vcf", "commands.preproc", "commands.prune",
+          "ops.recruit", "seq.bam", "seq.bai", "seq.cram", "seq.crai",
+          "seq.dist", "seq.panvcf"):
+    assert "locityper_tpu_torch." + n in names, n
 assert not any(k == "jax" or k.startswith("jax.") for k, v in
                sys.modules.items() if v is not None)
 
@@ -44,8 +52,10 @@ from locityper_tpu_torch.mathx.distr import NBinom
 from locityper_tpu_torch.model.locs import build_all_alignments_panel
 from locityper_tpu_torch.bg.err_prof import EditDistCache, EditThresh
 from locityper_tpu_torch.model import Params
+from locityper_tpu_torch.commands.genotype import recruit_reads_fast
 from locityper_tpu_torch.pipeline import (LocusData, genotype_panel,
                                           recruit_reads)
+from locityper_tpu_torch.seq import fastx
 from locityper_tpu_torch.seq.contigs import ContigSet
 from locityper_tpu_torch.seq.counts import GenomeKmerCounter, off_target_counts
 from locityper_tpu_torch.seq.recruit import RecruitParams
@@ -65,8 +75,18 @@ truth = (0, 2)
 rd = sim.simulate_paired_reads(
     rng, [locus.haplotypes[h] for h in truth], depth=12.0,
     errors=sim.ErrorModel(0.002, 0.0002, 0.0002), prefix="T0")
-rec = recruit_reads(data, zip(rd.names, rd.reads1, rd.reads2),
-                    RecruitParams(match_frac=0.5))
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    with open(tmp + "/r1.fq", "w") as f1, open(tmp + "/r2.fq", "w") as f2:
+        for n, a, b in zip(rd.names, rd.reads1, rd.reads2):
+            fastx.write_fastq(f1, fastx.Read(n, a))
+            fastx.write_fastq(f2, fastx.Read(n, b))
+    rec, _ = recruit_reads_fast(data, tmp + "/r1.fq", tmp + "/r2.fq",
+                                RecruitParams(match_frac=0.5), batch=256,
+                                device="cpu")
+host = recruit_reads(data, zip(rd.names, rd.reads1, rd.reads2),
+                     RecruitParams(match_frac=0.5), pad=9)
+assert rec["T0"][1] == host["T0"][1] and len(rec["T0"][1]) > 50
 m = 12.0 * 100 / 300 / 2.0
 bg = BgDistr(
     SequencingInfo(150.0, Technology.ILLUMINA),
@@ -93,6 +113,30 @@ print("OK", len(names), call)
 """
 
 
+_CLI_CHILD = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["locityper_tpu"] = None
+sys.argv = ["locityper_tpu_torch.cli"] + sys.argv[1:]
+runpy.run_module("locityper_tpu_torch.cli", run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--help"], "--device {cuda,cpu}"),
+    (["genotype", "--help"], "--stop-after"),
+    (["recruit", "--help"], "--preset"),
+])
+def test_cli_help_runs_with_jax_and_reference_package_poisoned(argv, needle):
+    proc = subprocess.run([sys.executable, "-c", _CLI_CHILD, *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "locityper-tpu-torch" in proc.stdout and needle in proc.stdout
+    for cmd in ("add", "preproc", "genotype", "recruit", "align", "prune",
+                "paf-vcf", "index"):
+        assert argv != ["--help"] or cmd in proc.stdout
+
+
 def test_port_runs_with_jax_and_reference_package_poisoned():
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                           capture_output=True, text=True, timeout=600)
@@ -106,7 +150,7 @@ _IMPORT_RE = re.compile(
 
 def _sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 40 and all(f.exists() for f in files)
+    assert len(files) >= 55 and all(f.exists() for f in files)
     return files
 
 
@@ -127,6 +171,9 @@ def test_every_module_is_importable_here():
         if not m.name.endswith(".libkernels")]  # the ctypes host library
     assert "locityper_tpu_torch.ops.solver_chains" in mods
     assert "locityper_tpu_torch.convert" in mods
+    assert "locityper_tpu_torch.cli" in mods
+    assert "locityper_tpu_torch.commands.genotype" in mods
+    assert "locityper_tpu_torch.ops.recruit" in mods
     for name in mods:
         __import__(name)
 
@@ -138,6 +185,10 @@ def test_kernel_sources_are_in_the_package():
         assert f'extern "C" int {fn}(' in text, name
         assert "__global__" in text
     assert set(_kernels.LAUNCHES) == set(_kernels.KERNELS)
+    assert {src for src, _fn, _at in _kernels.KERNELS.values()} == {
+        "align_banded.cu", "anneal_chains.cu", "minimizer_front.cu"}
+    assert {"minimizer_front_compact", "minimizer_front_full"} \
+        <= set(_kernels.KERNELS)
 
 
 def test_default_device_is_cuda_and_raises_without_one():
@@ -155,3 +206,10 @@ def test_default_device_is_cuda_and_raises_without_one():
         genotype_panel([], None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         solve_panel([], None, None, Scheme.default(), 1)
+    from locityper_tpu_torch.commands.genotype import (recruit_reads,
+                                                       recruit_reads_fast)
+    from locityper_tpu_torch.seq.recruit import RecruitParams
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recruit_reads({}, iter(()), RecruitParams())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recruit_reads_fast({}, "a.fq", "b.fq", RecruitParams())
