@@ -42,9 +42,15 @@ each mode is held against the plain version, exactly, and timed, and the
 entry's `modes` carries both.  `align_banded` carries `long_rows`: its
 largest main-path launch on rows longer than 8,192 (sample (c)), where the
 reference package switches to a second, row-streamed TPU kernel and this
-port keeps launching the one kernel.  `minimizer_front` is one source with
-two entries, `compact` and `full`; each is a launch count of its own and the
-kernel entry's `entries` carries both.
+port keeps launching the one kernel.  Both kernels were redesigned after
+their first port; `earlier_ms` beside `ms` is the earlier design's time on
+the same launch (constants below, with their origin).  The annealer walks a
+chain 32 steps at a time and evaluates again the moves that an accepted
+earlier move of the batch disturbs: the mean number of evaluation rounds a
+batch (`rounds_per_batch`, 1 to 32) is printed with each timed launch.
+`minimizer_front` is one source with two entries, `compact` and `full`;
+each is a launch count of its own and the kernel entry's `entries` carries
+both.
 
 How `bound_ms` is counted.  It is the larger of bytes / 3.35e12 B/s and
 operations / 67e12 op/s (H100 SXM: HBM3 rate and float32 rate outside the
@@ -115,6 +121,12 @@ K1_OPS_PER_CELL = 52          # counted in the header of align_banded.cu
 K2_OPS_PER_MOVE = 232         # counted in the header of anneal_chains.cu
 K3_OPS_FIXED, K3_OPS_PER_NEIGHBOUR = 26, 4  # header of minimizer_front.cu
 LONG_ROWS = 8192              # above this the reference streams rows (K4)
+# Times of the first designs of the two kernels (one thread a chain; one
+# warp a job with the best end searched in every row) on the main path's
+# largest launches, as this script read them on an NVIDIA H100 80GB HBM3,
+# 700.00 W, before the redesign: ms a launch.
+EARLIER_MS = {"align_banded": 1.970, "align_banded_long_rows": 18.974,
+              "anneal_chains_anneal": 43.766, "anneal_chains_polish": 2.729}
 DEPTH = 15.0
 BACKGROUND_MULTIPLE = 10        # (a): off-locus read mass / locus flanks
 
@@ -185,7 +197,25 @@ def align_bound_ms(reads, lens, wins, band):
             "operations" if by_ops >= by_bytes else "bytes")
 
 
-def compare_align(reads, lens, wins, sv, band, what, timed=True):
+def make_edge_jobs(seed, N, L, band, gap=2, tail=5):
+    """Jobs of `make_align_jobs` of which every 7th has an empty read
+    (len 0) and every 5th is the window's own diagonal with `gap` bases
+    deleted `tail` bases before the read's end, so that the best end, in
+    the last row, carries a deletion's payload."""
+    reads, lens, wins = make_align_jobs(seed, N, L, band)
+    ar = torch.arange(L, device="cuda")[None, :]
+    late = torch.arange(4, N, 5, device="cuda")
+    col = band // 2 + ar + (ar >= L - tail) * gap
+    reads[late] = torch.gather(wins[late], 1, col.expand(late.numel(), L))
+    lens[late] = L
+    empty = torch.arange(0, N, 7, device="cuda")
+    reads[empty] = 4
+    lens[empty] = 0
+    return reads, lens, wins, late, empty
+
+
+def compare_align(reads, lens, wins, sv, band, what, timed=True,
+                  all_valid=True):
     """Kernel vs plain version on the card: all eight outputs bit-identical.
     Returns a dict of measurements."""
     got = A.align_banded(reads, lens, wins, sv, band)
@@ -197,14 +227,38 @@ def compare_align(reads, lens, wins, sv, band, what, timed=True):
     for k in A.ALIGN_RESULT_KEYS:
         n_bad = int((got[k] != want[k]).sum())
         check(n_bad == 0, f"align_banded {what}: {n_bad} jobs differ in {k}")
-    check(bool(got["valid"].all()), f"align_banded {what}: invalid jobs")
+    check(bool(got["valid"].all()) or not all_valid,
+          f"align_banded {what}: invalid jobs")
     err = float((got["score"] - want["score"]).abs().max())
     ms = time_ms(lambda: A.align_banded(reads, lens, wins, sv, band)) \
         if timed else None
     bound_ms, bound_by = align_bound_ms(reads, lens, wins, band)
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
-                bound_by=bound_by, shape=[int(reads.shape[0]),
-                                          int(reads.shape[1]), band])
+                bound_by=bound_by, got=got,
+                shape=[int(reads.shape[0]), int(reads.shape[1]), band])
+
+
+def phase_k1_edges(sv):
+    """An odd number of jobs (at band 48 the last half warp has none), empty
+    reads, and a deletion carried into the best end of the last row."""
+    for N, L, band in ((4097, 128, 48), (1025, 128, 160)):
+        reads, lens, wins, late, empty = make_edge_jobs(N + band, N, L, band)
+        r = compare_align(reads, lens, wins, sv, band,
+                          f"{N}x{L} band {band}, edge cases", timed=False,
+                          all_valid=False)
+        got = r["got"]
+        check(not bool(got["valid"][empty].any())
+              and bool((got["score"][empty] == A.NEG).all())
+              and not bool(got["end_p"][empty].any()),
+              f"align_banded band {band}: an empty read has a result")
+        n_late = int(((got["n_del"][late] == 2)
+                      & (got["end_p"][late] == band // 2 + L + 2)).sum())
+        check(n_late > late.numel() // 2,
+              f"align_banded band {band}: {n_late} of {late.numel()} late "
+              "deletions found")
+        print(f"K1 {N} jobs L={L} band={band}, {empty.numel()} empty reads, "
+              f"{n_late} best ends after a late deletion: all 8 outputs "
+              "bit-identical", flush=True)
 
 
 # -- K2 --------------------------------------------------------------------
@@ -245,6 +299,32 @@ def prepare_chains(tensors, pack, bayes, cfg, gts, attempts, random_init,
                               *targs, cfg, pack.max_windows, random_init)
 
 
+def random_chains(seed, G, A, R, K, W, D):
+    """Random inputs of `anneal_chains` on the card, any shape."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C, i32 = G * A, torch.int32
+    probs = -4 * torch.rand((G, R, K), generator=g, device="cuda")
+    w = torch.randint(0, W, (C, R, K, 2), generator=g, device="cuda",
+                      dtype=i32)
+    winpk = w[..., 0] | (w[..., 1] << 16)
+    vcount = torch.randint(1, K + 1, (G, R), generator=g, device="cuda",
+                           dtype=i32)
+    nontrivial = vcount > 1
+    nt_ixs = torch.argsort((~nontrivial).to(torch.uint8), dim=1,
+                           stable=True).to(i32)
+    ntc = nontrivial.sum(1).clamp_min(1).to(i32)
+    start_temp = torch.full((G,), 5.0, device="cuda")
+    wtab = -torch.rand((C, W, D), generator=g, device="cuda")
+    assgn0 = torch.zeros((C, R), dtype=i32, device="cuda")
+    depth0 = torch.zeros((C, W), dtype=i32, device="cuda")
+    ones = torch.ones((C, R), dtype=i32, device="cuda")
+    depth0.scatter_add_(1, (winpk[:, :, 0] & 0xFFFF).long(), ones)
+    depth0.scatter_add_(1, (winpk[:, :, 0] >> 16).long(), ones)
+    cache0 = torch.gather(wtab, 2, depth0.clamp(0, D - 1).long()[..., None])
+    return (probs, winpk, vcount, nt_ixs, ntc, start_temp, wtab, assgn0,
+            depth0, cache0[..., 0])
+
+
 def anneal_bound_ms(chain_args, lik, assgn, steps):
     C, W = chain_args[6].shape[0], chain_args[6].shape[1]
     R = assgn.shape[1]
@@ -258,8 +338,9 @@ def anneal_bound_ms(chain_args, lik, assgn, steps):
 def compare_anneal(chain_args, kw, what, timed=False):
     """Kernel vs plain annealer on the card, same inputs, same stream: equal
     assignments, step counts and likelihoods, whatever the mode."""
+    SC.anneal_rounds()
     lik, assgn, steps = SC.anneal_chains(*chain_args, **kw)
-    torch.cuda.synchronize()
+    rounds, batches = SC.anneal_rounds()            # waits for the device
     t0 = time.perf_counter()
     p_lik, p_assgn, p_steps = SC.anneal_chains_reference(*chain_args, **kw)
     torch.cuda.synchronize()
@@ -274,9 +355,12 @@ def compare_anneal(chain_args, kw, what, timed=False):
         else None
     bound_ms, bound_by = anneal_bound_ms(chain_args, lik, assgn, steps)
     C, R, K = chain_args[1].shape
+    check(batches <= rounds <= 32 * batches,
+          f"anneal_chains {what}: {rounds} rounds in {batches} batches")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
                 bound_by=bound_by, moves=int(steps.sum()), lik=lik,
-                assgn=assgn,
+                assgn=assgn, steps=steps,
+                rounds_per_batch=rounds / max(batches, 1),
                 shape=dict(C=C, R=R, K=K, W=int(chain_args[6].shape[1]),
                            n_steps=kw["n_steps"],
                            anneal_steps=kw["anneal_steps"],
@@ -312,6 +396,42 @@ def phase_k2():
               f"{r['shape']['C']} chains exact, {r['moves']} moves",
               flush=True)
 
+    # The batched walk's corners: steps that are no multiple of 32, a
+    # plateau shorter than a batch, one that ends inside a batch, a cooling
+    # phase that ends inside a batch, chains that do not fill the last block.
+    cfgs = SolverConfig(anneal_steps=700, polish_steps=1299, **base)
+    args3 = prepare_chains(tensors, pack, bayes, cfgs, gts, 3, True, 6)
+    for a, what, n_steps, plato in (
+            (args, "1999 steps, cooling ends at 700", 1999, 0),
+            (args, "31 steps", 31, 0),
+            (args, "plateau 5", 1999, 5),
+            (args, "plateau 77", 1999, 77),
+            (args3, "18 chains, plateau 150", 1999, 150)):
+        attempts = a[1].shape[0] // len(gts)
+        r = compare_anneal(a, anneal_kw(cfgs, attempts, n_steps, plato, 14),
+                           what)
+        check(not plato or int(r["steps"].min()) < n_steps,
+              f"anneal_chains {what}: no chain froze")
+        print(f"K2 {what}: {r['shape']['C']} chains exact, {r['moves']} "
+              f"moves, {r['rounds_per_batch']:.2f} rounds a batch",
+              flush=True)
+    # A chain's state takes 4 (R + 3 W) bytes of shared memory: at R 20,000
+    # two chains fill a block (more than the 48 KB a kernel gets unasked);
+    # at R 60,000 one chain fits no block, and the same kernel keeps the
+    # state in global memory.
+    for R, what in ((20_000, "two chains a block"),
+                    (60_000, "state in global memory")):
+        r = compare_anneal(random_chains(8, 2, 3, R, 2, 20, 8),
+                           dict(attempts=3, n_steps=600, anneal_steps=300,
+                                dc=1.85, ac=0.15, plato=3,
+                                ln_init_prob=float(np.log(0.5)), seed=15),
+                           what)
+        check(int(r["steps"].min()) < 600,
+              f"anneal_chains, {what}: no chain froze")
+        print(f"K2 {what}, R={R}: {r['shape']['C']} chains exact, "
+              f"{r['moves']} moves, {r['rounds_per_batch']:.2f} rounds a "
+              "batch", flush=True)
+
     # Full default stage-2 shape: anneal 20k + polish 10k, 6 x 64 chains.
     cfga = SolverConfig(anneal_steps=20000, polish_steps=10000, **base)
     args = prepare_chains(tensors, pack, bayes, cfga, gts, 64, True, 5)
@@ -339,7 +459,8 @@ def phase_k2():
           f"exactly and reaches the ILP optimum of all {len(gts)} genotypes; "
           f"kernel vs host re-scoring max {worst:.2e}; "
           f"{r['ms']:.2f} ms/launch, "
-          f"{r['moves'] / r['ms'] * 1e3:.3e} moves/s "
+          f"{r['moves'] / r['ms'] * 1e3:.3e} moves/s, "
+          f"{r['rounds_per_batch']:.2f} rounds a batch "
           f"(plain {r['plain_ms']:.0f} ms)", flush=True)
 
 
@@ -741,13 +862,15 @@ def main():
               f"{r['ms']:.3f} ms/launch, {N / r['ms'] * 1e3:.3e} jobs/s "
               f"(plain {r['plain_ms']:.0f} ms, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']})", flush=True)
-    # Every compiled variant of K1 (1..8 band cells a lane).
-    bands = (20, 64, 96, 128, 192, 224, 256)
+    # Every compiled variant of K1 (1..8 band cells a lane; band 40 leaves
+    # cells of the half-warp variant unused).
+    bands = (20, 40, 64, 96, 128, 192, 224, 256)
     for band in bands:
         jobs = make_align_jobs(band, 2048, 128, band)
         compare_align(*jobs, sv, band, f"2048x128 band {band}", timed=False)
     print(f"K1 2048 jobs L=128 bands {list(bands)}: all 8 outputs "
           "bit-identical", flush=True)
+    phase_k1_edges(sv)
     phase_k2()
     phase_front()
 
@@ -842,8 +965,9 @@ def main():
     reads, lens, wins, svec, band = rec.align
     k1 = compare_align(reads, lens, wins, svec, band, "main-path launch")
     print(f"main-path launch of align_banded {k1['shape']} [N, L, band]: "
-          f"all 8 outputs bit-identical; {k1['ms']:.3f} ms "
-          f"(plain {k1['plain_ms']:.0f} ms, bound {k1['bound_ms']:.4f} ms "
+          f"all 8 outputs bit-identical; {k1['ms']:.3f} ms (earlier design "
+          f"{EARLIER_MS['align_banded']} ms; "
+          f"plain {k1['plain_ms']:.0f} ms, bound {k1['bound_ms']:.4f} ms "
           f"by {k1['bound_by']})", flush=True)
     reads, lens, wins, svec, band = rec.align_long
     k4 = compare_align(reads, lens, wins, svec, band,
@@ -851,7 +975,9 @@ def main():
     check(k4["shape"][1] > LONG_ROWS, f"long rows: L = {k4['shape'][1]}")
     print(f"main-path launch of align_banded on long rows {k4['shape']} "
           f"[N, L, band], longest read {int(lens.max())}: all 8 outputs "
-          f"bit-identical; {k4['ms']:.3f} ms (plain {k4['plain_ms']:.0f} ms, "
+          f"bit-identical; {k4['ms']:.3f} ms (earlier design "
+          f"{EARLIER_MS['align_banded_long_rows']} ms; plain "
+          f"{k4['plain_ms']:.0f} ms, "
           f"bound {k4['bound_ms']:.4f} ms by {k4['bound_by']})", flush=True)
     check(set(rec.anneal) == {"anneal", "polish"},
           f"annealer modes on the main path: {sorted(rec.anneal)}")
@@ -861,13 +987,20 @@ def main():
         k2_modes[mode] = m
         print(f"main-path {mode} launch of anneal_chains {m['shape']}: "
               f"equals plain exactly; {m['moves']} moves proposed of "
-              f"{m['shape']['C'] * m['shape']['n_steps']}; {m['ms']:.3f} ms, "
+              f"{m['shape']['C'] * m['shape']['n_steps']}, "
+              f"{m['rounds_per_batch']:.2f} evaluation rounds a batch of 32 "
+              f"steps; {m['ms']:.3f} ms (earlier design "
+              f"{EARLIER_MS['anneal_chains_' + mode]} ms), "
               f"{m['moves'] / m['ms'] * 1e3:.3e} moves/s "
               f"(plain {m['plain_ms']:.0f} ms, bound {m['bound_ms']:.4f} ms "
               f"by {m['bound_by']})", flush=True)
-    k2 = max(k2_modes.values(),
-             key=lambda m: m["shape"]["C"] * m["shape"]["R"]
-             * m["shape"]["K"] * m["shape"]["n_steps"])
+
+    def launch_size(mode):
+        shape = k2_modes[mode]["shape"]
+        return shape["C"] * shape["R"] * shape["K"] * shape["n_steps"]
+
+    k2_mode = max(k2_modes, key=launch_size)
+    k2 = k2_modes[k2_mode]
     check(set(rec.front) == {"compact", "full"},
           f"minimizer_front entries on the main path: {sorted(rec.front)}")
     k3 = {}
@@ -895,18 +1028,24 @@ def main():
                     **more)
 
     long_rows = entry("align_banded", ["align_banded"], "align_banded.cu",
-                      "locityper_tpu/ops/align_pallas.py:301", k4)
+                      "locityper_tpu/ops/align_pallas.py:301", k4,
+                      earlier_ms=EARLIER_MS["align_banded_long_rows"])
     long_rows["launches_by_path"] = {key: rec.n_align_long.get(key, 0)
                                      for key in launches}
     long_rows["launches"] = sum(long_rows["launches_by_path"].values())
     print(json.dumps({"kernels": [
         entry("align_banded", ["align_banded"], "align_banded.cu",
               "locityper_tpu/ops/align_pallas.py:370", k1,
-              long_rows=long_rows),
+              earlier_ms=EARLIER_MS["align_banded"], long_rows=long_rows),
         entry("anneal_chains", ["anneal_chains"], "anneal_chains.cu",
               "locityper_tpu/ops/solver_pallas.py:381", k2,
-              modes={mode: dict(numbers(m), moves=m["moves"])
-                     for mode, m in k2_modes.items()}),
+              earlier_ms=EARLIER_MS["anneal_chains_" + k2_mode],
+              rounds_per_batch=k2["rounds_per_batch"],
+              modes={mode: dict(
+                  numbers(m), moves=m["moves"],
+                  rounds_per_batch=m["rounds_per_batch"],
+                  earlier_ms=EARLIER_MS["anneal_chains_" + mode])
+                  for mode, m in k2_modes.items()}),
         entry("minimizer_front", FRONT, "minimizer_front.cu",
               "locityper_tpu/ops/recruit.py:358", k3["compact"],
               entries={

@@ -55,6 +55,12 @@ KERNELS = {
         [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
 }
 
+#: C functions of the same sources that launch no kernel (and so have no
+#: launch count): name -> (source file, C function, argtypes).
+AUXILIARY = {
+    "anneal_chains_rounds": ("anneal_chains.cu", "anneal_chains_rounds", [_P]),
+}
+
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
@@ -140,7 +146,8 @@ def load() -> _Lib:
             os.replace(tmp, paths[src])
         dlls = {src: ctypes.CDLL(str(so)) for src, so in paths.items()}
         fns = {}
-        for src, fn_name, argtypes in KERNELS.values():
+        for src, fn_name, argtypes in (*KERNELS.values(),
+                                       *AUXILIARY.values()):
             dll = dlls[src]
             fn = getattr(dll, fn_name)
             fn.argtypes = argtypes

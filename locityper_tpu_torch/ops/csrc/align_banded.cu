@@ -24,16 +24,35 @@
 //    5  origin restore: o==j compare, add, select; n_del + (j - o)
 //    4  best end of the row: two band-edge selects, add of (len-i)*clip, max
 //
-// Design: one warp per job.  The band's cells are striped over the lanes
-// (cell j lives in lane j%32, register j/32: band 48 -> 2 cells a lane,
-// band 160 -> 5), so that
+// Design: one warp per job, or half a warp where the band fits 16 lanes x 3
+// cells (bands 33..48, the short-read default: two jobs a warp and no padded
+// cell).  The band's cells are striped over the job's lanes (cell j lives in
+// lane j % LANES, register j / LANES: band 48 -> 3 cells in each of 16
+// lanes, band 160 -> 5 cells in each of 32), so that
 //   * the insertion move (cell j+1 of the previous row) is one shuffle from
 //     the next lane,
 //   * the deletion move is a max-plus scan along j in log2(max_del_run)
-//     doubling steps, each a shuffle of (adjusted score, origin cell);
-//     the five op-count payloads are not carried through the scan but
-//     gathered once from the winning origin through shared memory,
-//   * the row's best end is a warp max plus a ballot for the smallest j.
+//     doubling steps, each a shuffle of (adjusted score, origin cell) - or
+//     no shuffle at all where the step is a whole number of registers (16
+//     cells on 16 lanes); the five op-count payloads are not carried through
+//     the scan but gathered once from the winning origin through shared
+//     memory,
+//   * the best end is not searched row by row: each lane keeps the best
+//     (score, row, cell, payloads) of its own cells with strict '>', which
+//     keeps the earlier row and within a row the smaller cell, and one
+//     reduction after the last row takes the largest score, then the
+//     smallest row, then the smallest cell - the first row to reach the
+//     maximum and the smallest j in it, as the row-by-row rule has it.
+// A row's read code and window bases are single-byte loads that hit L1 on 31
+// rows of 32; they are started at the top of the row, so that they are in
+// flight while the previous row is shuffled (loading them a whole row ahead
+// into registers was tried and cost 4 to 5 %).  Two warps a block: spreading
+// few long jobs over more SMs gains 2 % there and costs nothing on short
+// rows.
+// In nearly every row some cell right of the read's diagonal takes a
+// deletion from it (a deletion beats a mismatch there), so a fast path for
+// rows without deletion origins would run in about one row of a hundred
+// and is left out.
 // The DP state is O(band) registers, so any read length runs (no row cap,
 // no streamed variant), and jobs need not come in multiples of anything.
 // Payloads are separate 32-bit counters: they do not wrap at 65,536.
@@ -45,10 +64,10 @@
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr int WARPS = 4;             // jobs (warps) per block
+constexpr int WARPS = 2;             // warps per block
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int CPL>
+template <int LANES, int CPL>
 __global__ void __launch_bounds__(32 * WARPS)
 align_banded_kernel(const int8_t* __restrict__ reads,
                     const int32_t* __restrict__ lens,
@@ -57,19 +76,30 @@ align_banded_kernel(const int8_t* __restrict__ reads,
                     float* __restrict__ out_score,
                     int32_t* __restrict__ out_int,   // [6, N]
                     long long N, int L, int band, int max_del_run) {
-  constexpr int S = CPL * 32;                        // padded band
-  __shared__ int32_t pay_smem[WARPS][5][S];
+  constexpr int S = CPL * LANES;                     // padded band
+  constexpr int JOBS = 32 / LANES;                   // jobs a warp
+  __shared__ int32_t pay_smem[WARPS * JOBS][5][S];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long job = (long long)blockIdx.x * WARPS + warp;
-  if (job >= N) return;                              // warps are independent
-  int32_t (*pay_s)[S] = pay_smem[warp];
+  const int sl = lane % LANES;                       // lane within the job
+  const long long first = ((long long)blockIdx.x * WARPS + warp) * JOBS;
+  if (first >= N) return;                            // warps are independent
+  // A half warp without a job walks the last job's rows and writes nothing.
+  const bool has_job = first + lane / LANES < N;
+  const long long job = has_job ? first + lane / LANES : N - 1;
+  int32_t (*pay_s)[S] = pay_smem[warp * JOBS + lane / LANES];
 
   const float m_sc = scores[0], x_sc = scores[1], i_sc = scores[2],
               d_sc = scores[3], c_sc = scores[4];
   const int len = lens[job];
   const float len_f = (float)len;
-  const int n_rows = len < L ? len : L;
+  const int n_rows = has_job ? (len < L ? len : L) : 0;
+  // Both jobs of a warp walk the rows of the longer one.
+  int n_walk = n_rows;
+  if (JOBS > 1) {
+    const int other = __shfl_xor_sync(FULL, n_rows, LANES & 31);
+    n_walk = other > n_walk ? other : n_walk;
+  }
   const int8_t* rd = reads + job * (long long)L;
   const int8_t* wn = wins + job * (long long)(L + band);
 
@@ -77,19 +107,28 @@ align_banded_kernel(const int8_t* __restrict__ reads,
   int mism[CPL], ins[CPL], del[CPL], clip[CPL], sp[CPL];
 #pragma unroll
   for (int c = 0; c < CPL; ++c) {
-    const int j = c * 32 + lane;
+    const int j = c * LANES + sl;
     prev[c] = j < band ? 0.0f : NEG;
     jd[c] = (float)j * d_sc;
     mism[c] = ins[c] = del[c] = clip[c] = 0;
     sp[c] = j;
   }
+  // This lane's best end over its own cells.
   float best_s = NEG;
-  int best_mism = 0, best_ins = 0, best_del = 0, best_clip = 0, best_sp = 0,
-      best_ep = 0;
-  const int nxt = (lane + 1) & 31;
+  int best_row = 0, best_j = sl, best_mism = 0, best_ins = 0, best_del = 0,
+      best_clip = 0, best_sp = 0;
+  const int nxt = (sl + 1) % LANES;
 
-  for (int i = 1; i <= n_rows; ++i) {
+  for (int i = 1; i <= n_walk; ++i) {
+    // The row's read code and window bases first: the loads are in flight
+    // while the previous row is shuffled.
     const int r_c = rd[i - 1];
+    int h_row[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int j = c * LANES + sl;
+      h_row[c] = j < band ? (int)wn[i - 1 + j] : 4;
+    }
     const float clip_s = c_sc * (float)i;
 
     // Previous row seen from cell j+1 (insertion source).
@@ -97,12 +136,12 @@ align_banded_kernel(const int8_t* __restrict__ reads,
     int v_mism[CPL], v_ins[CPL], v_del[CPL], v_clip[CPL], v_sp[CPL];
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
-      v_prev[c] = __shfl_sync(FULL, prev[c], nxt);
-      v_mism[c] = __shfl_sync(FULL, mism[c], nxt);
-      v_ins[c] = __shfl_sync(FULL, ins[c], nxt);
-      v_del[c] = __shfl_sync(FULL, del[c], nxt);
-      v_clip[c] = __shfl_sync(FULL, clip[c], nxt);
-      v_sp[c] = __shfl_sync(FULL, sp[c], nxt);
+      v_prev[c] = __shfl_sync(FULL, prev[c], nxt, LANES);
+      v_mism[c] = __shfl_sync(FULL, mism[c], nxt, LANES);
+      v_ins[c] = __shfl_sync(FULL, ins[c], nxt, LANES);
+      v_del[c] = __shfl_sync(FULL, del[c], nxt, LANES);
+      v_clip[c] = __shfl_sync(FULL, clip[c], nxt, LANES);
+      v_sp[c] = __shfl_sync(FULL, sp[c], nxt, LANES);
     }
 
     float base[CPL], adj[CPL];
@@ -110,18 +149,19 @@ align_banded_kernel(const int8_t* __restrict__ reads,
     __syncwarp();                     // last row's gathers are done
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
-      const int j = c * 32 + lane;
-      const int h_c = j < band ? (int)wn[i - 1 + j] : 4;
+      const int j = c * LANES + sl;
+      const int h_c = h_row[c];
       float sub = (r_c == h_c) ? m_sc : x_sc;
       if (!(h_c < 4 && r_c < 4)) sub = NEG;
       const float diag_s = prev[c] + sub;
       int b_mism = mism[c] + (r_c != h_c ? 1 : 0);
       int b_ins = ins[c], b_del = del[c], b_clip = clip[c], b_sp = sp[c];
 
-      // Cell j+1: next lane, or lane 0 of the next register for lane 31.
+      // Cell j+1: next lane, or the job's first lane in the next register
+      // for its last lane.
       float n_prev;
       int n_mism, n_ins, n_del, n_clip, n_sp;
-      if (lane < 31 || c + 1 >= CPL) {
+      if (sl < LANES - 1 || c + 1 >= CPL) {
         n_prev = v_prev[c]; n_mism = v_mism[c]; n_ins = v_ins[c];
         n_del = v_del[c]; n_clip = v_clip[c]; n_sp = v_sp[c];
       } else {
@@ -152,15 +192,20 @@ align_banded_kernel(const int8_t* __restrict__ reads,
     for (int k = 0; k < 8; ++k) {
       const int s = 1 << k;
       if (s < max_del_run) {
-        const int q = s >> 5, r = s & 31;
-        const int src = (lane - r) & 31;
-        const bool borrow = lane < r;
+        const int q = s / LANES, r = s % LANES;
+        const int src = (sl - r + LANES) % LANES;
+        const bool borrow = sl < r;
         float va[CPL];
         int vo[CPL];
 #pragma unroll
         for (int c = 0; c < CPL; ++c) {
-          va[c] = __shfl_sync(FULL, adj[c], src);
-          vo[c] = __shfl_sync(FULL, orig[c], src);
+          if (r != 0) {
+            va[c] = __shfl_sync(FULL, adj[c], src, LANES);
+            vo[c] = __shfl_sync(FULL, orig[c], src, LANES);
+          } else {                     // a whole number of registers
+            va[c] = adj[c];
+            vo[c] = orig[c];
+          }
         }
 #pragma unroll
         for (int c = 0; c < CPL; ++c) {
@@ -188,14 +233,13 @@ align_banded_kernel(const int8_t* __restrict__ reads,
       }
     }
 
-    // Payloads follow the winning origin; fold the best end of this row.
+    // Payloads follow the winning origin; the lane's best end so far.
     __syncwarp();
     const float end_bonus = (len_f - (float)i) * c_sc;
-    float cand[CPL];
-    float row_max = -INFINITY;
+    const bool live = i <= n_rows;
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
-      const int j = c * 32 + lane;
+      const int j = c * LANES + sl;
       const int o = orig[c];
       const float row_s = (o == j) ? base[c] : adj[c] + jd[c];
       mism[c] = pay_s[0][o];
@@ -204,60 +248,54 @@ align_banded_kernel(const int8_t* __restrict__ reads,
       clip[c] = pay_s[3][o];
       sp[c] = pay_s[4][o];
       prev[c] = j < band ? row_s : NEG;
-      cand[c] = j < band ? row_s + end_bonus : -INFINITY;
-      row_max = fmaxf(row_max, cand[c]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      row_max = fmaxf(row_max, __shfl_xor_sync(FULL, row_max, off));
-
-    if (row_max > best_s) {            // uniform across the warp
-      int found = -1, src_lane = 0;
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const unsigned b = __ballot_sync(FULL, cand[c] == row_max);
-        if (found < 0 && b) {
-          found = c;
-          src_lane = __ffs(b) - 1;
-        }
+      const float cand = j < band ? row_s + end_bonus : -INFINITY;
+      if (live && cand > best_s) {
+        best_s = cand;
+        best_row = i;
+        best_j = j;
+        best_mism = mism[c]; best_ins = ins[c]; best_del = del[c];
+        best_clip = clip[c] + (len - i);
+        best_sp = sp[c];
       }
-      int p_mism = 0, p_ins = 0, p_del = 0, p_clip = 0, p_sp = 0;
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        if (c == found) {
-          p_mism = mism[c]; p_ins = ins[c]; p_del = del[c];
-          p_clip = clip[c]; p_sp = sp[c];
-        }
-      }
-      best_s = row_max;
-      best_mism = __shfl_sync(FULL, p_mism, src_lane);
-      best_ins = __shfl_sync(FULL, p_ins, src_lane);
-      best_del = __shfl_sync(FULL, p_del, src_lane);
-      best_clip = __shfl_sync(FULL, p_clip, src_lane) + (len - i);
-      best_sp = __shfl_sync(FULL, p_sp, src_lane);
-      best_ep = i + found * 32 + src_lane;
     }
   }
 
-  if (lane == 0) {
+  // The job's best end: largest score, then smallest row, then smallest j.
+  float top_s = best_s;
+  int top_row = best_row, top_j = best_j;
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) {
+    const float o_s = __shfl_xor_sync(FULL, top_s, off, LANES);
+    const int o_row = __shfl_xor_sync(FULL, top_row, off, LANES);
+    const int o_j = __shfl_xor_sync(FULL, top_j, off, LANES);
+    if (o_s > top_s ||
+        (o_s == top_s &&
+         (o_row < top_row || (o_row == top_row && o_j < top_j)))) {
+      top_s = o_s;
+      top_row = o_row;
+      top_j = o_j;
+    }
+  }
+  if (has_job && sl == top_j % LANES) {   // the lane that holds the winner
     out_score[job] = best_s;
     out_int[0 * N + job] = best_mism;
     out_int[1 * N + job] = best_ins;
     out_int[2 * N + job] = best_del;
     out_int[3 * N + job] = best_clip;
     out_int[4 * N + job] = best_sp;
-    out_int[5 * N + job] = best_ep;
+    out_int[5 * N + job] = top_row + top_j;
   }
 }
 
-template <int CPL>
+template <int LANES, int CPL>
 cudaError_t launch(const int8_t* reads, const int32_t* lens,
                    const int8_t* wins, const float* scores, float* out_score,
                    int32_t* out_int, long long N, int L, int band,
                    int max_del_run, cudaStream_t stream) {
-  const long long blocks = (N + WARPS - 1) / WARPS;
+  constexpr int per_block = WARPS * (32 / LANES);
+  const long long blocks = (N + per_block - 1) / per_block;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  align_banded_kernel<CPL><<<(unsigned)blocks, 32 * WARPS, 0, stream>>>(
+  align_banded_kernel<LANES, CPL><<<(unsigned)blocks, 32 * WARPS, 0, stream>>>(
       reads, lens, wins, scores, out_score, out_int, N, L, band, max_del_run);
   return cudaGetLastError();
 }
@@ -274,7 +312,6 @@ extern "C" int align_banded_launch(const void* reads, const void* lens,
                                    int max_del_run, void* stream) {
   if (N <= 0) return 0;
   if (band < 1 || band > 256 || L < 0) return (int)cudaErrorInvalidValue;
-  const int cpl = (band + 31) / 32;
   auto* r = (const int8_t*)reads;
   auto* l = (const int32_t*)lens;
   auto* w = (const int8_t*)wins;
@@ -282,14 +319,18 @@ extern "C" int align_banded_launch(const void* reads, const void* lens,
   auto* os = (float*)out_score;
   auto* oi = (int32_t*)out_int;
   auto st = (cudaStream_t)stream;
+  // Bands 33..48: 16 lanes x 3 cells, two jobs a warp.
+  if (band > 32 && band <= 48)
+    return (int)launch<16, 3>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
+  const int cpl = (band + 31) / 32;
   switch (cpl) {
-    case 1: return (int)launch<1>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
-    case 2: return (int)launch<2>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
-    case 3: return (int)launch<3>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
-    case 4: return (int)launch<4>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
-    case 5: return (int)launch<5>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
-    case 6: return (int)launch<6>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
-    case 7: return (int)launch<7>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
-    default: return (int)launch<8>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
+    case 1: return (int)launch<32, 1>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
+    case 2: return (int)launch<32, 2>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
+    case 3: return (int)launch<32, 3>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
+    case 4: return (int)launch<32, 4>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
+    case 5: return (int)launch<32, 5>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
+    case 6: return (int)launch<32, 6>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
+    case 7: return (int)launch<32, 7>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
+    default: return (int)launch<32, 8>(r, l, w, s, os, oi, N, L, band, max_del_run, st);
   }
 }

@@ -24,9 +24,13 @@ seed and counted by (chain, step): word 0 picks the read, word 1 the
 candidate, word 2 is the acceptance draw.  It is written twice — in PyTorch
 integer ops here and in CUDA in `csrc/anneal_chains.cu` — so that the plain
 annealer `anneal_chains_reference` and the kernel consume the same stream.
+The kernel walks a chain 32 steps at a time (one warp a chain, one lane a
+step, moves resolved in order); its results equal the step-by-step plain
+version's to the bit.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -262,6 +266,17 @@ def _anneal_chains_cuda(probs, winpk, vcount, nt_ixs, ntc, start_temp, wtab,
         _kernels.check(err, "anneal_chains")
         _kernels.LAUNCHES["anneal_chains"] += 1
     return lik, assgn, steps_done
+
+
+def anneal_rounds():
+    """The CUDA kernel's own account of its schedule: (evaluation rounds,
+    batches of 32 steps) summed over all chains launched since the last
+    call, then set to zero.  rounds / batches is 1 when no move of a batch
+    disturbs a later one and at most 32.  Waits for the device."""
+    out = (ctypes.c_ulonglong * 2)()
+    err = _kernels.load().anneal_chains_rounds(ctypes.addressof(out))
+    _kernels.check(err, "anneal_chains_rounds")
+    return int(out[0]), int(out[1])
 
 
 def anneal_chains(probs, winpk, vcount, nt_ixs, ntc, start_temp, wtab,

@@ -193,3 +193,103 @@ def test_cuda_tensor_never_takes_the_plain_version():
     reads, lens, wins = make_batch(np.random.default_rng(1), 4, 64, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TA.align_batch(reads, lens, wins, SCORE_VEC, band=16)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's best-end rule, checked on the CPU.  The plain version
+# looks for the best end row by row; the kernel lets every lane keep the
+# best of its own cells (cell j lives in lane j % lanes) and reduces once.
+# ---------------------------------------------------------------------------
+
+def row_by_row_best(cand):
+    """The plain version's rule on cand [rows, band]: the first row to reach
+    the maximum (strict '>'), the smallest j among that row's maxima."""
+    best, where = np.float32(TA.NEG), (0, 0)
+    for i, row in enumerate(cand, start=1):
+        if row.max() > best:
+            best, where = row.max(), (i, int(np.argmax(row)))
+    return best, where
+
+
+def per_lane_best(cand, lanes):
+    """The kernel's rule: per lane the best of its own cells over all rows,
+    strict '>' in the order (row, register); then over the lanes the largest
+    score, the smallest row, the smallest j."""
+    tops = []
+    for lane in range(lanes):
+        best, where = np.float32(TA.NEG), (0, lane)
+        for i, row in enumerate(cand, start=1):
+            for j in range(lane, cand.shape[1], lanes):
+                if row[j] > best:
+                    best, where = row[j], (i, j)
+        tops.append((-best, where))
+    neg_best, where = min(tops)
+    return -neg_best, where
+
+
+def candidate_rows(reads, lens, wins, band, max_del_run=32):
+    """Row scores plus end bonus, [rows, N, band], and the share of rows in
+    which some cell takes a deletion origin: the plain version's walk without
+    its payloads."""
+    sv = torch.from_numpy(SCORE_VEC)
+    m_sc, x_sc, i_sc, d_sc, c_sc = (sv[k] for k in range(5))
+    reads, wins = torch.from_numpy(reads), torch.from_numpy(wins)
+    lens_f = torch.from_numpy(lens).to(torch.float32)[:, None]
+    N, L = reads.shape
+    j_idx = torch.arange(band, dtype=torch.int32)[None, :]
+    jd = j_idx.to(torch.float32) * d_sc
+    prev = torch.zeros((N, band))
+    neg_col = torch.full((N, 1), TA.NEG)
+    out, n_del_rows = [], 0
+    for i in range(1, L + 1):
+        r_c, h_c = reads[:, i - 1:i], wins[:, i - 1:i - 1 + band]
+        sub = torch.where(r_c == h_c, m_sc, x_sc)
+        sub = torch.where((h_c < 4) & (r_c < 4), sub, TA.NEG)
+        ins_s = torch.cat([prev[:, 1:], neg_col], dim=1) + i_sc
+        ins_s[:, band - 1] = TA.NEG
+        base_s = torch.maximum(torch.maximum(ins_s, prev + sub),
+                               c_sc * float(i))
+        adj, orig, s = base_s - jd, j_idx.expand(N, band), 1
+        while s < min(max_del_run, band):
+            sh_adj = torch.cat([neg_col.expand(N, s), adj[:, :-s]], dim=1)
+            take = sh_adj > adj
+            adj = torch.where(take, sh_adj, adj)
+            orig = torch.where(take, torch.roll(orig, s, dims=1), orig)
+            s *= 2
+        prev = torch.where(orig == j_idx, base_s, adj + jd)
+        n_del_rows += int((orig != j_idx).any(dim=1).sum())
+        out.append(prev + (lens_f - float(i)) * c_sc)
+    return torch.stack(out).numpy(), n_del_rows / (N * L)
+
+
+@pytest.mark.parametrize("band,lanes", [(20, 32), (48, 16), (160, 32)])
+@pytest.mark.parametrize("source", ["quantised", "aligner"])
+def test_per_lane_best_end_equals_row_by_row_rule(source, band, lanes):
+    """Same (score, row, j) from both rules, on random scores quantised to
+    five values (ties everywhere) and on the candidate rows of real jobs,
+    whose end_p must also be the plain version's."""
+    rng = np.random.default_rng(band)
+    if source == "quantised":
+        cands = rng.integers(-5, 0, (12, 40, band)).astype(np.float32)
+        cands = cands.transpose(1, 0, 2)                  # [rows, jobs, band]
+    else:
+        reads, lens, wins = make_batch(rng, 12, 96, band, hard=True)
+        lens[:] = 96           # candidate_rows walks all rows of every job
+        reads[reads == 4] = 0
+        cands, _ = candidate_rows(reads, lens, wins, band)
+        want = run_torch(reads, lens, wins, band)
+    for n in range(cands.shape[1]):
+        score, (row, j) = row_by_row_best(cands[:, n])
+        assert per_lane_best(cands[:, n], lanes) == (score, (row, j)), n
+        if source == "aligner":
+            assert score == want["score"][n] and row + j == want["end_p"][n]
+
+
+def test_a_deletion_origin_is_taken_in_most_rows():
+    """Why the kernel has no fast path for rows without deletion origins:
+    right of a read's diagonal a deletion from the diagonal beats a
+    mismatch, so nearly every row has a cell whose origin is another cell."""
+    rng = np.random.default_rng(2)
+    reads, lens, wins = make_batch(rng, 32, 150, 48)
+    _, share = candidate_rows(reads, lens, wins, 48)
+    assert share > 0.9, share

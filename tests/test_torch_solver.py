@@ -336,3 +336,208 @@ def test_plain_annealer_reaches_ilp_optimum(seed):
     np.testing.assert_array_equal(assgn, assgn2)
     liks3, _ = run_torch(seed + 100, gts, tensors, pack, bayes, tcfg, **kw)
     assert not np.array_equal(liks, liks3)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's schedule, modelled on the CPU: one chain walked in batches
+# of 32 steps.  Every lane of a batch evaluates its move against the state at
+# the start of the batch; then all lanes up to the first one that an accepted
+# earlier lane disturbs (same read, or a window whose depth both moves
+# change) are settled at once, the accepted ones apply their moves together,
+# and the disturbed later lanes evaluate again.  The walk must equal the
+# step-by-step plain annealer exactly.
+# ---------------------------------------------------------------------------
+
+def random_chains(seed, G=3, A=2, R=12, K=4, W=8, D=16):
+    """Small random chain tensors (numpy seed), few windows so that moves
+    of one batch conflict often."""
+    rng = np.random.default_rng(seed)
+    C = G * A
+    probs = (-4 * rng.random((G, R, K))).astype(np.float32)
+    w = rng.integers(0, W, (C, R, K, 2)).astype(np.int32)
+    winpk = w[..., 0] | (w[..., 1] << 16)
+    vcount = rng.integers(1, K + 1, (G, R)).astype(np.int32)
+    nontrivial = vcount > 1
+    nt_ixs = np.argsort(~nontrivial, axis=1, kind="stable").astype(np.int32)
+    ntc = np.maximum(nontrivial.sum(1), 1).astype(np.int32)
+    start_temp = np.full(G, 2.0, np.float32)
+    wtab = (-rng.random((C, W, D))).astype(np.float32)
+    assgn0 = np.zeros((C, R), np.int32)
+    depth0 = np.zeros((C, W), np.int32)
+    for c in range(C):
+        np.add.at(depth0[c], w[c, :, 0, 0], 1)
+        np.add.at(depth0[c], w[c, :, 0, 1], 1)
+    cache0 = np.take_along_axis(wtab, np.clip(depth0, 0, D - 1)[..., None],
+                                axis=2)[..., 0]
+    return tuple(torch.from_numpy(x) for x in (
+        probs, winpk, vcount, nt_ixs, ntc, start_temp, wtab, assgn0, depth0,
+        cache0))
+
+
+def walk_chain_in_batches(c, probs, winpk, vcount, nt_ixs, ntc, start_temp,
+                          wtab, assgn, depth, cache, *, attempts, n_steps,
+                          anneal_steps, dc, ac, plato, ln_init_prob, seed):
+    """Walks chain `c` as one warp of the kernel does; updates the chain's
+    rows of assgn/depth/cache in place.  Returns (steps_done, evaluation
+    rounds, batches)."""
+    R, K = winpk.shape[1:]
+    D = wtab.shape[2]
+    f32, i64 = torch.float32, torch.int64
+    g = c // attempts
+    st = start_temp[g].to(f32)
+    plato = plato if plato and plato < n_steps else 0
+    min_diff = torch.clamp_min(st * float(np.float32(-ln_init_prob)) * 1e-6,
+                               1e-10) if plato else None
+    k0, k1 = TC._split_seed(seed)
+    denom = float(max(anneal_steps, 1))
+    as_, dp, ch = assgn[c], depth[c], cache[c]
+    lanes = torch.arange(32, dtype=i64)
+    stale, rounds, batches = 0, 0, 0
+
+    for s0 in range(0, n_steps, 32):
+        nvalid = min(32, n_steps - s0)
+        steps = s0 + lanes
+        zero = torch.zeros(32, dtype=i64)
+        b0, b1, b2, _ = TC.philox4x32(torch.full((32,), c, dtype=i64), steps,
+                                      zero, zero, k0, k1)
+        # Independent of the state: one lane a step.
+        t = TC._randint(TC._u01(b0), ntc[g].to(i64).expand(32))
+        r = nt_ixs[g].to(i64)[t]
+        vc = vcount[g].to(i64)[r]
+        i = 1 + TC._randint(TC._u01(b1), torch.clamp_min(vc - 1, 1))
+        u = TC._u01(b2)
+        s_rem = torch.clamp_min(anneal_steps - steps, 0).to(f32)
+        temp = st * s_rem / denom
+        hot = steps < anneal_steps
+
+        accept = torch.zeros(32, dtype=torch.bool)
+        new = torch.zeros(32, dtype=i64)
+        ws = torch.zeros((32, 4), dtype=i64)
+        cs = torch.zeros((32, 4), dtype=i64)
+        new_v = torch.zeros((32, 4), dtype=f32)
+
+        def evaluate(m):
+            """Lanes `m` evaluate their move against the current state."""
+            cur = as_.to(i64)[r[m]]
+            nw = torch.where(i[m] <= cur, i[m] - 1, i[m])
+            p_cur = probs[g, r[m], cur]
+            p_new = probs[g, r[m], nw]
+            wp_cur = winpk[c, r[m], cur].to(i64)
+            wp_new = winpk[c, r[m], nw].to(i64)
+            w1, w2 = wp_cur & TC.M16, (wp_cur >> 16) & TC.M16
+            w3, w4 = wp_new & TC.M16, (wp_new >> 16) & TC.M16
+            e21 = w2 == w1
+            c1 = -1 - e21.to(i64)
+            c2 = e21.to(i64) - 1
+            e31, e32 = w3 == w1, w3 == w2
+            c3 = 1 - (e31 | e32).to(i64)
+            c1 = c1 + e31.to(i64)
+            c2 = c2 + (~e31 & e32).to(i64)
+            e41, e42, e43 = w4 == w1, w4 == w2, w4 == w3
+            c4 = 1 - (e41 | e42 | e43).to(i64)
+            c1 = c1 + e41.to(i64)
+            c2 = c2 + (~e41 & e42).to(i64)
+            c3 = c3 + (~e41 & ~e42 & e43).to(i64)
+            wv = torch.stack([w1, w2, w3, w4], dim=1)
+            cv = torch.stack([c1, c2, c3, c4], dim=1)
+            d1 = torch.clamp(dp.to(i64)[wv] + cv, 0, D - 1)
+            nv = wtab[c][wv, d1]
+            dd = torch.where(cv != 0, nv - ch[wv], 0.0)
+            delta = ac * (p_new - p_cur) \
+                + dc * (dd[:, 0] + dd[:, 1] + dd[:, 2] + dd[:, 3])
+            if plato:
+                diffm = delta - min_diff
+                metro = (temp[m] > 0) & (u[m] <= torch.exp(
+                    diffm / torch.clamp_min(temp[m], 1e-30)))
+                acc = torch.where(hot[m], (diffm >= 0) | metro,
+                                  delta > min_diff)
+            else:
+                metro = (temp[m] > 0) & (u[m] <= torch.exp(
+                    delta / torch.clamp_min(temp[m], 1e-30)))
+                acc = (delta >= 0) | metro
+            accept[m], new[m], ws[m], cs[m], new_v[m] = acc, nw, wv, cv, nv
+
+        def disturbs(x, y):
+            """Applying lane y's move changes what lane x evaluated: the
+            same read, or a window whose depth both moves change."""
+            changed, needed = ws[y][cs[y] != 0], ws[x][cs[x] != 0]
+            return bool(r[x] == r[y]) or bool(
+                (needed[:, None] == changed[None, :]).any())
+
+        pend = [lane < nvalid for lane in range(32)]
+        pos = 0
+        while pos < nvalid:
+            evaluate(torch.tensor(pend))
+            rounds += 1
+            # Every lane up to the first one that an accepted earlier lane
+            # of this stretch disturbs is settled at once.
+            f = next((x for x in range(pos, nvalid)
+                      if any(accept[y] and disturbs(x, y)
+                             for y in range(pos, x))), nvalid)
+            moved = [x for x in range(pos, f) if accept[x]]
+            # Rejections add to `stale`, an accepted move sets it to 0, and
+            # the chain freezes before the step at which it reaches `plato`.
+            run_from, stop = pos, None
+            for a in moved + [f]:
+                if plato and run_from + (plato - stale) <= a:
+                    stop = run_from + (plato - stale)
+                    moved = [x for x in moved if x < stop]
+                    break
+                if a < f:
+                    run_from, stale = a + 1, 0
+            if stop is None:
+                stale += f - run_from
+            written = set()
+            for a in moved:                 # together: no word written twice
+                for q in range(4):
+                    if cs[a, q] != 0:
+                        assert ("w", int(ws[a, q])) not in written
+                        written.add(("w", int(ws[a, q])))
+                        dp[ws[a, q]] = dp[ws[a, q]] + cs[a, q]
+                        ch[ws[a, q]] = new_v[a, q]
+                assert ("r", int(r[a])) not in written
+                written.add(("r", int(r[a])))
+                as_[r[a]] = new[a]
+            if stop is not None:            # the chain freezes before `stop`
+                return s0 + stop, rounds, batches + 1
+            pend = [x >= f and x < nvalid
+                    and any(disturbs(x, y) for y in moved)
+                    for x in range(32)]
+            pos = f
+        batches += 1
+    return n_steps, rounds, batches
+
+
+@pytest.mark.parametrize("anneal_steps", [0, 40])
+@pytest.mark.parametrize("n_steps", [0, 31, 100])
+@pytest.mark.parametrize("plato", [0, 5, 40, 300])
+def test_batched_schedule_equals_plain_annealer(plato, n_steps, anneal_steps):
+    """Assignments, likelihoods and step counts of the batched walk equal
+    `anneal_chains_reference` exactly, whatever the plateau, for step
+    counts that are no multiple of 32 and a cooling phase that ends inside a
+    batch."""
+    args = random_chains(17)
+    kw = dict(attempts=2, n_steps=n_steps, anneal_steps=anneal_steps,
+              dc=1.85, ac=0.15, plato=plato, ln_init_prob=-0.6931472, seed=5)
+    want_lik, want_assgn, want_steps = TC.anneal_chains_reference(*args, **kw)
+    probs, winpk = args[0], args[1]
+    C, A = winpk.shape[0], kw["attempts"]
+    assgn, depth, cache = (x.clone() for x in args[7:])
+    steps, rounds, batches = [], 0, 0
+    for c in range(C):
+        s, n_r, n_b = walk_chain_in_batches(c, *args[:7], assgn, depth, cache,
+                                            **kw)
+        steps.append(s)
+        rounds, batches = rounds + n_r, batches + n_b
+    assert steps == want_steps.tolist()
+    assert torch.equal(assgn, want_assgn)
+    g = torch.arange(C) // A
+    dep = cache.double().sum(dim=1).to(torch.float32)
+    aln = torch.gather(probs[g], 2, assgn.long()[:, :, None])[:, :, 0] \
+        .double().sum(dim=1).to(torch.float32)
+    assert torch.equal(kw["dc"] * dep + kw["ac"] * aln, want_lik)
+    assert rounds >= batches
+    if n_steps == 100 and plato in (0, 300):
+        # Several moves of a batch are accepted: some batches take more
+        # than one round, none takes 32.
+        assert batches == 4 * C and batches < rounds < 32 * batches
