@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--resources]
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, then drives the port's
@@ -43,8 +43,10 @@ entry's `modes` carries both.  `align_banded` carries `long_rows`: its
 largest main-path launch on rows longer than 8,192 (sample (c)), where the
 reference package switches to a second, row-streamed TPU kernel and this
 port keeps launching the one kernel.  Both kernels were redesigned after
-their first port; `earlier_ms` beside `ms` is the earlier design's time on
-the same launch (constants below, with their origin).  The annealer walks a
+their first port; the earlier design's time on the same launch (constants
+below, with their origin) is printed on the kernel's own line beside the
+time of this run, and is not part of the JSON line, which holds only what
+this run measured.  The annealer walks a
 chain 32 steps at a time and evaluates again the moves that an accepted
 earlier move of the batch disturbs: the mean number of evaluation rounds a
 batch (`rounds_per_batch`, 1 to 32) is printed with each timed launch.
@@ -75,10 +77,13 @@ null.
 With `--profile`, samples (b) and (a), and (a)'s recruit phase alone, are
 run once more under `torch.profiler` after everything else, and the device's
 busy share of each run and the device time by kernel name are printed
-(before the two closing JSON lines).
+(before the two closing JSON lines).  With `--resources`, every source is
+compiled once more with `-Xptxas -v` right after the build, and the
+registers and the spilled bytes of every kernel instantiation are printed.
 """
 import gzip
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -338,9 +343,9 @@ def anneal_bound_ms(chain_args, lik, assgn, steps):
 def compare_anneal(chain_args, kw, what, timed=False):
     """Kernel vs plain annealer on the card, same inputs, same stream: equal
     assignments, step counts and likelihoods, whatever the mode."""
-    SC.anneal_rounds()
-    lik, assgn, steps = SC.anneal_chains(*chain_args, **kw)
-    rounds, batches = SC.anneal_rounds()            # waits for the device
+    schedule = torch.zeros(2, dtype=torch.int64, device="cuda")
+    lik, assgn, steps = SC.anneal_chains(*chain_args, schedule=schedule, **kw)
+    rounds, batches = schedule.tolist()             # waits for the device
     t0 = time.perf_counter()
     p_lik, p_assgn, p_steps = SC.anneal_chains_reference(*chain_args, **kw)
     torch.cuda.synchronize()
@@ -832,9 +837,42 @@ NEEDS = {"a": ("align_banded", "anneal_chains", FRONT[0]),
          "c": ("align_banded", "anneal_chains", FRONT[1])}
 
 
+def print_resources():
+    """Compiles every source once more with `-Xptxas -v` (the library's own
+    flags otherwise, output thrown away) and prints, for every kernel
+    instantiation, the registers a thread and the bytes spilled to local
+    memory as ptxas reports them."""
+    nvcc = _kernels._find_nvcc()
+    filt = Path(nvcc).with_name("cu++filt")
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted({s for s, _fn, _at in _kernels.KERNELS.values()}):
+            out = subprocess.run(
+                [nvcc, *_kernels.ARCH_FLAGS, *_kernels.COMMON_FLAGS,
+                 "-Xptxas", "-v", "-o", str(Path(tmp) / "resources.so"),
+                 str(_kernels.CSRC / src)],
+                capture_output=True, text=True, check=True, timeout=600)
+            report = re.findall(
+                r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+                r"Used (\d+) registers", out.stderr, flags=re.S)
+            check(report, f"no ptxas report for {src}:\n{out.stderr}")
+            for name, stack, stores, loads, regs in report:
+                if filt.exists():
+                    name = subprocess.run(
+                        [str(filt), name], capture_output=True, text=True,
+                        check=True, timeout=60).stdout.strip()
+                    name = name.rpartition("(")[0].replace("(int)", "") \
+                        .replace("(bool)", "")
+                print(f"resources {src} {name}: {regs} registers, stack "
+                      f"{stack} B, spill stores {stores} B, spill loads "
+                      f"{loads} B", flush=True)
+
+
 def main():
-    want_profile = sys.argv[1:] == ["--profile"]
-    if sys.argv[1:] and not want_profile:
+    options = set(sys.argv[1:])
+    want_profile = "--profile" in options
+    want_resources = "--resources" in options
+    if options - {"--profile", "--resources"}:
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -852,6 +890,8 @@ def main():
     sources = sorted({src for src, _fn, _at in _kernels.KERNELS.values()})
     print(f"build: {len(sources)} sources {sources} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if want_resources:
+        print_resources()
 
     sv = torch.tensor(A.Scores.from_error_rates(0.002, 0.0002, 0.0002)
                       .astuple(), dtype=torch.float32, device="cuda")
@@ -1028,23 +1068,20 @@ def main():
                     **more)
 
     long_rows = entry("align_banded", ["align_banded"], "align_banded.cu",
-                      "locityper_tpu/ops/align_pallas.py:301", k4,
-                      earlier_ms=EARLIER_MS["align_banded_long_rows"])
+                      "locityper_tpu/ops/align_pallas.py:301", k4)
     long_rows["launches_by_path"] = {key: rec.n_align_long.get(key, 0)
                                      for key in launches}
     long_rows["launches"] = sum(long_rows["launches_by_path"].values())
     print(json.dumps({"kernels": [
         entry("align_banded", ["align_banded"], "align_banded.cu",
               "locityper_tpu/ops/align_pallas.py:370", k1,
-              earlier_ms=EARLIER_MS["align_banded"], long_rows=long_rows),
+              long_rows=long_rows),
         entry("anneal_chains", ["anneal_chains"], "anneal_chains.cu",
               "locityper_tpu/ops/solver_pallas.py:381", k2,
-              earlier_ms=EARLIER_MS["anneal_chains_" + k2_mode],
               rounds_per_batch=k2["rounds_per_batch"],
               modes={mode: dict(
                   numbers(m), moves=m["moves"],
-                  rounds_per_batch=m["rounds_per_batch"],
-                  earlier_ms=EARLIER_MS["anneal_chains_" + mode])
+                  rounds_per_batch=m["rounds_per_batch"])
                   for mode, m in k2_modes.items()}),
         entry("minimizer_front", FRONT, "minimizer_front.cu",
               "locityper_tpu/ops/recruit.py:358", k3["compact"],

@@ -46,19 +46,13 @@ KERNELS = {
         [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
     "anneal_chains": (
         "anneal_chains.cu", "anneal_chains_launch",
-        [_P] * 12 + [_I] * 9 + [ctypes.c_float] * 3 + [_L, _P]),
+        [_P] * 12 + [_I] * 9 + [ctypes.c_float] * 3 + [_L, _P, _P]),
     "minimizer_front_compact": (
         "minimizer_front.cu", "minimizer_front_compact_launch",
         [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
     "minimizer_front_full": (
         "minimizer_front.cu", "minimizer_front_full_launch",
         [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
-}
-
-#: C functions of the same sources that launch no kernel (and so have no
-#: launch count): name -> (source file, C function, argtypes).
-AUXILIARY = {
-    "anneal_chains_rounds": ("anneal_chains.cu", "anneal_chains_rounds", [_P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -146,8 +140,7 @@ def load() -> _Lib:
             os.replace(tmp, paths[src])
         dlls = {src: ctypes.CDLL(str(so)) for src, so in paths.items()}
         fns = {}
-        for src, fn_name, argtypes in (*KERNELS.values(),
-                                       *AUXILIARY.values()):
+        for src, fn_name, argtypes in KERNELS.values():
             dll = dlls[src]
             fn = getattr(dll, fn_name)
             fn.argtypes = argtypes

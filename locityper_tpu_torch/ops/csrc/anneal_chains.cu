@@ -85,11 +85,6 @@ constexpr int WARPS = 4;             // chains (warps) per block, at most
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_SMEM = 232448;     // bytes a block can use on sm_90
 
-// Evaluation rounds and batches of all chains since the counters were last
-// read (anneal_chains_rounds): 32 * batches / rounds is the mean length of a
-// stretch, which says how much of the 32-fold overlap the data allowed.
-__device__ unsigned long long g_rounds[2];
-
 __device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,
                                               uint32_t c2, uint32_t c3,
                                               uint32_t k0, uint32_t k1,
@@ -169,7 +164,8 @@ anneal_chains_kernel(const float* __restrict__ probs,      // [G, R, K]
                      int32_t* __restrict__ steps_done,     // [C]
                      int C, int R, int K, int W, int D, int attempts,
                      int n_steps, int anneal_steps, int plato, float dc,
-                     float ac, float ln_init_prob, uint32_t k0, uint32_t k1) {
+                     float ac, float ln_init_prob, uint32_t k0, uint32_t k1,
+                     unsigned long long* schedule) {           // [2] or null
   extern __shared__ int32_t state_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -413,8 +409,10 @@ anneal_chains_kernel(const float* __restrict__ probs,      // [G, R, K]
   if (lane == 0) {
     lik[c] = dc * (float)dep + ac * (float)aln;
     steps_done[c] = s_end;
-    atomicAdd(&g_rounds[0], (unsigned long long)rounds);
-    atomicAdd(&g_rounds[1], (unsigned long long)batches);
+    if (schedule != nullptr) {
+      atomicAdd(&schedule[0], (unsigned long long)rounds);
+      atomicAdd(&schedule[1], (unsigned long long)batches);
+    }
   }
 }
 
@@ -422,14 +420,18 @@ anneal_chains_kernel(const float* __restrict__ probs,      // [G, R, K]
 
 // See ops/solver_chains.py for the layouts.  assgn, depth and cache are
 // updated in place; steps_done [C] receives the moves each chain proposed
-// before it froze or ran out of steps.  Returns the cudaError_t of the launch.
+// before it froze or ran out of steps.  `schedule` is null or two 64-bit
+// words on the device to which every chain adds its evaluation rounds and
+// its batches: 32 * batches / rounds is the mean length of a stretch, which
+// says how much of the 32-fold overlap the data allowed.  Returns the
+// cudaError_t of the launch.
 extern "C" int anneal_chains_launch(
     const void* probs, const void* winpk, const void* vcount,
     const void* nt_ixs, const void* ntc, const void* start_temp,
     const void* wtab, void* assgn, void* depth, void* cache, void* lik,
     void* steps_done, int C, int R, int K, int W, int D, int attempts, int n_steps,
     int anneal_steps, int plato, float dc, float ac, float ln_init_prob,
-    long long seed, void* stream) {
+    long long seed, void* schedule, void* stream) {
   if (C <= 0) return 0;
   if (attempts < 1 || R < 1 || K < 1 || W < 1 || D < 1)
     return (int)cudaErrorInvalidValue;
@@ -455,16 +457,7 @@ extern "C" int anneal_chains_launch(
       (const float*)wtab, (int32_t*)assgn, (int32_t*)depth, (float*)cache,
       (float*)lik, (int32_t*)steps_done, C, R, K, W, D, attempts, n_steps,
       anneal_steps, plato, dc, ac, ln_init_prob,
-      (uint32_t)(useed & 0xFFFFFFFFull), (uint32_t)(useed >> 32));
+      (uint32_t)(useed & 0xFFFFFFFFull), (uint32_t)(useed >> 32),
+      (unsigned long long*)schedule);
   return (int)cudaGetLastError();
-}
-
-// Copies to `out` (two unsigned 64-bit words on the host) the evaluation
-// rounds and the batches of all chains launched since the last call, and
-// sets both to zero.  Waits for the device.  Returns a cudaError_t.
-extern "C" int anneal_chains_rounds(void* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_rounds, sizeof(g_rounds));
-  if (err != cudaSuccess) return (int)err;
-  const unsigned long long zero[2] = {0ull, 0ull};
-  return (int)cudaMemcpyToSymbol(g_rounds, zero, sizeof(zero));
 }

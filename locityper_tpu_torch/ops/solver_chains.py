@@ -30,7 +30,6 @@ version's to the bit.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import numpy as np
@@ -218,7 +217,8 @@ def anneal_chains_reference(probs, winpk, vcount, nt_ixs, ntc, start_temp,
 
 def _anneal_chains_cuda(probs, winpk, vcount, nt_ixs, ntc, start_temp, wtab,
                         assgn0, depth0, cache0, *, attempts, n_steps,
-                        anneal_steps, dc, ac, plato, ln_init_prob, seed):
+                        anneal_steps, dc, ac, plato, ln_init_prob, seed,
+                        schedule=None):
     C, R, K = winpk.shape
     G = probs.shape[0]
     W, D = wtab.shape[1], wtab.shape[2]
@@ -241,6 +241,12 @@ def _anneal_chains_cuda(probs, winpk, vcount, nt_ixs, ntc, start_temp, wtab,
     if C != G * attempts or W > M16 + 1:
         raise ValueError(f"anneal_chains: C={C} G={G} attempts={attempts} "
                          f"W={W}")
+    if schedule is not None and (
+            schedule.dtype != torch.int64 or tuple(schedule.shape) != (2,)
+            or schedule.device != dev or not schedule.is_contiguous()):
+        raise ValueError(f"anneal_chains: schedule is {schedule.dtype} "
+                         f"{tuple(schedule.shape)} on {schedule.device}, "
+                         f"expected torch.int64 (2,) on {dev}")
     probs, winpk, vcount, nt_ixs, ntc, start_temp, wtab = (
         t.contiguous() for t in (probs, winpk, vcount, nt_ixs, ntc,
                                  start_temp, wtab))
@@ -262,38 +268,39 @@ def _anneal_chains_cuda(probs, winpk, vcount, nt_ixs, ntc, start_temp, wtab,
                 cache.data_ptr(), lik.data_ptr(), steps_done.data_ptr(),
                 C, R, K, W, D, int(attempts), int(n_steps),
                 int(anneal_steps), int(plato), float(dc), float(ac),
-                float(ln_init_prob), int(seed) & 0x7FFFFFFFFFFFFFFF, stream)
+                float(ln_init_prob), int(seed) & 0x7FFFFFFFFFFFFFFF,
+                None if schedule is None else schedule.data_ptr(), stream)
         _kernels.check(err, "anneal_chains")
         _kernels.LAUNCHES["anneal_chains"] += 1
     return lik, assgn, steps_done
 
 
-def anneal_rounds():
-    """The CUDA kernel's own account of its schedule: (evaluation rounds,
-    batches of 32 steps) summed over all chains launched since the last
-    call, then set to zero.  rounds / batches is 1 when no move of a batch
-    disturbs a later one and at most 32.  Waits for the device."""
-    out = (ctypes.c_ulonglong * 2)()
-    err = _kernels.load().anneal_chains_rounds(ctypes.addressof(out))
-    _kernels.check(err, "anneal_chains_rounds")
-    return int(out[0]), int(out[1])
-
-
 def anneal_chains(probs, winpk, vcount, nt_ixs, ntc, start_temp, wtab,
                   assgn0, depth0, cache0, *, attempts: int, n_steps: int,
                   anneal_steps: int, dc: float, ac: float, plato: int = 0,
-                  ln_init_prob: float = -0.6931472, seed: int = 0):
+                  ln_init_prob: float = -0.6931472, seed: int = 0,
+                  schedule=None):
     """Kernel wrapper: CUDA tensors go to the hand-written kernel (or
     raise), CPU tensors to the plain version — decided by where `probs`
     lies and by nothing else.  Returns (lik [C], assgn [C, R] int32,
-    steps_done [C] int32)."""
+    steps_done [C] int32).
+
+    `schedule`, if given, is an int64 tensor of two elements beside `probs`
+    on the card: the kernel adds to it the evaluation rounds and the batches
+    of 32 steps of this launch's chains (rounds / batches is 1 when no move
+    of a batch disturbs a later one, and at most 32).  The plain version
+    walks step by step and has no such account: with CPU tensors `schedule`
+    must be None."""
     kw = dict(attempts=attempts, n_steps=n_steps, anneal_steps=anneal_steps,
               dc=dc, ac=ac, plato=plato, ln_init_prob=ln_init_prob,
               seed=int(seed) & 0x7FFFFFFFFFFFFFFF)
     if probs.is_cuda:
         return _anneal_chains_cuda(probs, winpk, vcount, nt_ixs, ntc,
                                    start_temp, wtab, assgn0, depth0, cache0,
-                                   **kw)
+                                   schedule=schedule, **kw)
+    if schedule is not None:
+        raise ValueError("anneal_chains: schedule is counted by the CUDA "
+                         "kernel only")
     return anneal_chains_reference(probs, winpk, vcount, nt_ixs, ntc,
                                    start_temp, wtab, assgn0, depth0, cache0,
                                    **kw)
