@@ -42,11 +42,11 @@ each mode is held against the plain version, exactly, and timed, and the
 entry's `modes` carries both.  `align_banded` carries `long_rows`: its
 largest main-path launch on rows longer than 8,192 (sample (c)), where the
 reference package switches to a second, row-streamed TPU kernel and this
-port keeps launching the one kernel.  Both kernels were redesigned after
-their first port; the earlier design's time on the same launch (constants
-below, with their origin) is printed on the kernel's own line beside the
-time of this run, and is not part of the JSON line, which holds only what
-this run measured.  The annealer walks a
+port keeps launching the one kernel.  All three kernels were redesigned
+after their first port; the earlier design's time on the same launch
+(constants below, with their origin) is printed on the kernel's own line
+beside the time of this run, and is not part of the JSON line, which holds
+only what this run measured.  The annealer walks a
 chain 32 steps at a time and evaluates again the moves that an accepted
 earlier move of the batch disturbs: the mean number of evaluation rounds a
 batch (`rounds_per_batch`, 1 to 32) is printed with each timed launch.
@@ -74,8 +74,8 @@ tensor cores; all kernels do scalar float32/int32 work only).
 No single PyTorch call computes any of these functions, so `library_ms` is
 null.
 
-With `--profile`, samples (b) and (a), and (a)'s recruit phase alone, are
-run once more under `torch.profiler` after everything else, and the device's
+With `--profile`, samples (b) and (a), and the recruit phases of (a) and
+(c) alone, are run once more under `torch.profiler` after everything else, and the device's
 busy share of each run and the device time by kernel name are printed
 (before the two closing JSON lines).  With `--resources`, every source is
 compiled once more with `-Xptxas -v` right after the build, and the
@@ -126,12 +126,13 @@ K1_OPS_PER_CELL = 52          # counted in the header of align_banded.cu
 K2_OPS_PER_MOVE = 232         # counted in the header of anneal_chains.cu
 K3_OPS_FIXED, K3_OPS_PER_NEIGHBOUR = 26, 4  # header of minimizer_front.cu
 LONG_ROWS = 8192              # above this the reference streams rows (K4)
-# Times of the first designs of the two kernels (one thread a chain; one
-# warp a job with the best end searched in every row) on the main path's
-# largest launches, as this script read them on an NVIDIA H100 80GB HBM3,
-# 700.00 W, before the redesign: ms a launch.
+# Times of the first designs of the kernels (one thread a chain; one warp a
+# job with the best end searched in every row; one block a read row) on the
+# main path's largest launches, as this script read them on an NVIDIA H100
+# 80GB HBM3, 700.00 W, before the redesign: ms a launch.
 EARLIER_MS = {"align_banded": 1.970, "align_banded_long_rows": 18.974,
-              "anneal_chains_anneal": 43.766, "anneal_chains_polish": 2.729}
+              "anneal_chains_anneal": 43.766, "anneal_chains_polish": 2.729,
+              "minimizer_front_compact": 0.320, "minimizer_front_full": 0.173}
 DEPTH = 15.0
 BACKGROUND_MULTIPLE = 10        # (a): off-locus read mass / locus flanks
 
@@ -528,18 +529,33 @@ def phase_front():
         r = compare_front(make_reads(B + L, B, L), 15, 10, S,
                           f"{entry} {B}x{L}")
         print(f"K3/K5 minimizer_front {entry} {B} reads L={L} k=15 w=10 "
-              f"S={S}: all outputs bit-identical; {r['ms']:.3f} ms/launch, "
+              f"S={S}: all outputs bit-identical; {r['ms']:.4f} ms/launch, "
               f"{B * L / r['ms'] * 1e3:.3e} bases/s "
               f"(plain {r['plain_ms']:.0f} ms, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']})", flush=True)
-    # Other parameters, a truncating S, S past the row, one short row.
-    for B, L, k, w, S in ((999, 152, 15, 10, 8), (999, 152, 11, 5, None),
-                          (999, 152, 7, 1, 160), (1, 15, 15, 10, 4),
-                          (77, 3001, 15, 40, None), (77, 3001, 13, 63, 900)):
+    # Other parameters, a truncating S, S past the row, one short row; the
+    # edges of the kernel's schedule: fewer rows than a block of 4 warps, an
+    # S cut inside a later chunk of 256 positions, rows of no multiple of
+    # 16 bytes, the largest w (past 48 KB of shared memory a block).
+    further = ((999, 152, 15, 10, 8), (999, 152, 11, 5, None),
+               (999, 152, 7, 1, 160), (1, 15, 15, 10, 4),
+               (77, 3001, 15, 40, None), (77, 3001, 13, 63, 900),
+               (5, 200, 15, 10, 20), (333, 1000, 15, 10, 100),
+               (129, 1001, 13, 12, 64), (9, 2000, 15, 1024, 30),
+               (9, 2000, 15, 1024, None))
+    for B, L, k, w, S in further:
         compare_front(make_reads(B + L + w, B, L, 0.01), k, w, S,
                       f"{B}x{L} k={k} w={w} S={S}")
-    print("K3/K5 minimizer_front 6 further shapes and parameters: all "
-          "outputs bit-identical", flush=True)
+    empty = torch.empty((0, 192), dtype=torch.int8, device="cuda")
+    for S in (None, 80):
+        for a, b in zip(R.minimizer_front(empty, 15, 10, S),
+                        R.minimizer_front_reference(empty, 15, 10, S)):
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"minimizer_front empty batch S={S}: {a.dtype} "
+                  f"{tuple(a.shape)}, plain {b.dtype} {tuple(b.shape)}")
+    print(f"K3/K5 minimizer_front {len(further)} further shapes and "
+          "parameters and an empty batch: all outputs bit-identical",
+          flush=True)
 
 
 # -- main path ---------------------------------------------------------------
@@ -1001,6 +1017,9 @@ def main():
             profile_main_path(
                 "(a) recruit phase alone, traced",
                 lambda: G.recruit_reads_fast(panel_data, fq1, fq2, rp))
+            profile_main_path(
+                "(c) recruit phase alone, traced",
+                lambda: G.recruit_reads(long_data, long_iter(), rp_long))
 
     reads, lens, wins, svec, band = rec.align
     k1 = compare_align(reads, lens, wins, svec, band, "main-path launch")
@@ -1048,8 +1067,9 @@ def main():
         m = compare_front(reads, k, w, S, f"main-path {entry} launch")
         k3[entry] = m
         print(f"main-path launch of minimizer_front ({entry}) {m['shape']}: "
-              f"all outputs bit-identical; {m['ms']:.3f} ms "
-              f"(plain {m['plain_ms']:.0f} ms, bound {m['bound_ms']:.4f} ms "
+              f"all outputs bit-identical; {m['ms']:.4f} ms (earlier design "
+              f"{EARLIER_MS['minimizer_front_' + entry]} ms; "
+              f"plain {m['plain_ms']:.0f} ms, bound {m['bound_ms']:.4f} ms "
               f"by {m['bound_by']})", flush=True)
 
     def numbers(m):

@@ -48,7 +48,7 @@ SIGN_BIT = 0x80000000
 BIG_S32 = 0x7FFFFFFF                    # the undefined hash, signed view
 _I32_MIN = -0x80000000                  # SIGN_BIT as an int32 bit pattern
 MAX_K = 15                              # 30-bit k-mers in 32-bit words
-MAX_W = 1024                            # the kernel's staged halo
+MAX_W = 1024                            # halo of w - 1 a chunk: 35 KB a warp
 
 _Cfg = namedtuple("_Cfg", "n_loci n_groups k w frac_p frac_q")
 

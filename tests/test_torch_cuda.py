@@ -153,25 +153,39 @@ def test_anneal_kernel_schedule_cases(card, case):
     assert batches <= rounds <= 32 * batches
 
 
-@pytest.mark.parametrize("B,L", [(1, 15), (257, 152), (4096, 192),
-                                 (64, 16384)])
-def test_minimizer_front_kernel_equals_plain_version(card, B, L):
+@pytest.mark.parametrize("B,L,k,w", [
+    (1, 15, 15, 10), (257, 152, 15, 10), (4096, 192, 15, 10),
+    (64, 16384, 15, 10),
+    # The edges of the kernel's schedule: a warp a row or a chunk of 256
+    # positions, 4 warps a block, a slice of shared memory a warp.
+    (5, 200, 15, 10),           # rows no multiple of the warps a block
+    (333, 1000, 15, 10),        # S = P // 16 cuts inside a later chunk
+    (129, 1001, 13, 12),        # rows of no multiple of 16 bytes
+    (9, 2000, 15, 1024),        # 4 warps of 35,072 B: past 48 KB a block
+    (0, 192, 15, 10),           # an empty batch
+])
+def test_minimizer_front_kernel_equals_plain_version(card, B, L, k, w):
     """Both entries of minimizer_front.cu, bit-identical on every output:
-    reads with N, a row of one repeated base (every hash ties), a run of N,
-    a truncating S, rows that span many tiles."""
+    reads with N and negative int8 codes, a row of one repeated base (every
+    hash ties), a run of N, a truncating S, rows that span many chunks."""
     from locityper_tpu_torch.ops import recruit as TR
     rng = np.random.default_rng(B + L)
     reads = rng.integers(0, 4, (B, L)).astype(np.int8)
     reads[rng.random((B, L)) < 0.01] = 4
-    reads[B // 2] = 3
-    reads[B // 3, L // 4:L // 2] = 4
+    reads[rng.random((B, L)) < 0.002] = -1
+    if B:
+        reads[B // 2] = 3
+        reads[B // 3, L // 4:L // 2] = 4
     reads = torch.from_numpy(reads).to(card)
-    k, w = 15, 10
     got = TR.minimizer_front(reads, k, w)
     want = TR.minimizer_front_reference(reads, k, w)
     for name, a, b in zip(("hs", "is_fw", "mask"), got, want):
         assert a.dtype == b.dtype and torch.equal(a, b), name
     P = L - k + 1
+    assert bool(want[2].any()) or not B or P < w
+    if L == 1000:
+        cut = (want[2].cumsum(1) >= P // 16).to(torch.uint8).argmax(1)
+        assert bool(((want[2].sum(1) > P // 16) & (cut >= 256)).any())
     for S in (TR._front_S(P, w), max(P // 16, 1), P + 5):
         got = TR.minimizer_front(reads, k, w, S)
         want = TR.minimizer_front_reference(reads, k, w, S)

@@ -4,8 +4,8 @@ A subprocess poisons `sys.modules["jax"]` and `sys.modules["locityper_tpu"]`,
 imports every module of `locityper_tpu_torch` and genotypes a tiny locus on
 `device="cpu"`, from two FASTQ files through the device recruiter; another
 runs `python -m locityper_tpu_torch.cli --help` poisoned the same way; the
-sources of the package and of `chip_smoke.py` are also searched for such
-imports.
+sources of the package, of `chip_smoke.py` and of `time_minimizer_front.py`
+are also searched for such imports.
 """
 import pkgutil
 import re
@@ -149,7 +149,8 @@ _IMPORT_RE = re.compile(
 
 
 def _sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "time_minimizer_front.py"]
     assert len(files) >= 55 and all(f.exists() for f in files)
     return files
 

@@ -168,6 +168,181 @@ def test_minimizers_equal_the_host_engine():
         np.testing.assert_array_equal(tf[i][tm[i]], fwd)
 
 
+# --- the CUDA kernel's schedule, walked on the CPU --------------------------
+
+def schedule_model(hs, is_fw, w, S, chunk, lanes):
+    """numpy walk of minimizer_front.cu's schedule over the plain version's
+    hashes and directions [B, P]: chunks of `chunk` positions, each staged
+    with halos of w - 1 hashes (BIG past the row's edges); keys (unsigned
+    hash << 32 | staged index), log2 w passes that leave the least key of
+    every span of 2^j, and each window of w inside the row and touching the
+    chunk marking the least of two overlapping spans; positions striped
+    over `lanes` lanes, Q = chunk / lanes steps a chunk, a step's set lanes
+    ranked by ballot + popcount, the count carried from chunk to chunk and
+    the writes cut at S.  Returns (mask [B, P], and the compacting entry's
+    hs, is_fw, mask [B, S] and total [B])."""
+    B, P = hs.shape
+    halo = w - 1
+    span_log = w.bit_length() - 1
+    rows = np.arange(B)[:, None]
+    lane = np.arange(lanes)
+    mask = np.zeros((B, P), bool)
+    out_h = np.full((B, S), BIG, np.int32)
+    out_f = np.zeros((B, S), bool)
+    out_m = np.zeros((B, S), bool)
+    count = np.zeros(B, np.int64)
+    for c0 in range(0, P, chunk):
+        n = min(chunk, P - c0)
+        q0 = c0 - halo
+        q = np.arange(q0, c0 + n + halo)
+        inside = (q >= 0) & (q < P)
+        staged = np.full((B, q.size), BIG, np.int64)
+        staged[:, inside] = hs[:, q[inside]]
+        key = ((staged + 2**31).astype(np.uint64) << np.uint64(32)) \
+            | np.arange(q.size, dtype=np.uint64)
+        for j in range(1, span_log + 1):
+            d = 1 << (j - 1)
+            last = q.size - 2 * d
+            key[:, :last + 1] = np.minimum(key[:, :last + 1],
+                                           key[:, d:last + 1 + d])
+        marked = np.zeros((B, q.size), bool)
+        s = np.arange(max(0, c0 - halo), min(c0 + n - 1, P - w) + 1) - q0
+        if s.size:
+            least = np.minimum(key[:, s], key[:, s + w - (1 << span_log)])
+            marked[rows, (least & np.uint64(0xFFFFFFFF)).astype(np.int64)] = 1
+        for j0 in range(0, n, lanes):
+            j = j0 + lane
+            live = j < n
+            p = c0 + np.minimum(j, n - 1)
+            c = np.minimum(j, n - 1) + halo         # the position in `staged`
+            h = staged[:, c]
+            m = live & marked[:, c] & (h != BIG)
+            mask[:, c0 + j[live]] = m[:, live]
+            rank = count[:, None] + np.cumsum(m, axis=1) - m   # popc below
+            put = m & (rank < S)
+            r_ix, _ = np.nonzero(put)
+            out_h[r_ix, rank[put]] = h[put]
+            out_f[r_ix, rank[put]] = is_fw[rows, p[None, :]][put]
+            out_m[r_ix, rank[put]] = True
+            count += m.sum(axis=1)
+    return mask, out_h, out_f, out_m, count.astype(np.int32)
+
+
+def schedule_reads(B, L, seed):
+    """Random codes with N at chunk boundaries (64, 96, 256, 512), a run of
+    N, negative int8 codes and a row of one repeated base."""
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 4, (B, L)).astype(np.int8)
+    reads[rng.random((B, L)) < 0.01] = 4
+    for b in (64, 96, 256, 512):
+        if b < L:
+            reads[1, b] = 4
+            reads[2, b - 1] = 4
+    reads[3, L // 3:L // 2] = 4
+    reads[4, ::7] = -1
+    reads[4, 3::11] = -128
+    reads[B - 1] = 2
+    return reads
+
+
+@pytest.mark.parametrize("chunk,lanes", [(256, 32), (96, 32), (32, 32),
+                                         (64, 8)])
+@pytest.mark.parametrize("L,w,S", [
+    (700, 10, 100),     # the S cut falls in a later chunk
+    (700, 40, 30),
+    (40, 10, 12),       # P < 32
+    (15, 10, 4),        # P = 1
+    (20, 10, 8),        # w > P
+    (300, 1, 400),      # w = 1, S > P
+])
+def test_kernel_schedule_equals_plain_compaction(chunk, lanes, L, w, S):
+    """The kernel's chunked, striped walk gives the plain version's mask,
+    and its ballot rank gives the plain version's compaction exactly."""
+    k = 15
+    reads = schedule_reads(9, L, L + w)
+    hs, is_fw, mask = (a.numpy() for a in TR._hash_mask_reference(
+        t8(reads), k, w))
+    got_mask, *got = schedule_model(hs, is_fw, w, S, chunk, lanes)
+    np.testing.assert_array_equal(got_mask, mask)
+    want = [a.numpy() for a in TR.minimizer_front_reference(t8(reads), k,
+                                                            w, S)]
+    for name, a, b in zip(("hs", "is_fw", "mask", "total"), got, want):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    if L == 700 and w == 10:
+        # At least one row keeps minimizers of a later chunk and drops some.
+        cut = np.argmax(np.cumsum(mask, axis=1) >= S, axis=1)
+        assert ((want[3] > S) & (cut >= chunk)).any()
+
+
+def rolling_model(reads, k, w, chunk, lanes):
+    """numpy walk of the kernel's rolling k-mers: each chunk stages codes
+    q0 = c0 - (w - 1) onwards (4 past the row's edges, int8 read as a byte),
+    and lane l rolls the hashes of staged positions l * run ... l * run +
+    run - 1, run = ceil((n + 2 (w - 1)) / lanes) made odd: k - 1 codes fill
+    the k-mer, then one code a position, an invalid code entering as 0 and
+    restarting the run of valid codes.  Returns (hs, is_fw) [B, P] as the
+    lanes leave them for the positions of the row; asserts that every
+    position past the row's edges comes out BIG."""
+    B, L = reads.shape
+    P, halo = L - k + 1, w - 1
+    kmask = (1 << 2 * k) - 1
+    hs = np.zeros((B, P), np.int64)
+    is_fw = np.zeros((B, P), bool)
+    for c0 in range(0, P, chunk):
+        n = min(chunk, P - c0)
+        q0 = c0 - halo
+        run = -(-(n + 2 * halo) // lanes) | 1
+        pos = q0 + np.arange(lanes * run + k - 1)
+        inrow = (pos >= 0) & (pos < L)
+        staged = np.full((B, pos.size), 4, np.int64)
+        staged[:, inrow] = reads[:, pos[inrow]].astype(np.int64) & 0xFF
+        for lane in range(lanes):
+            fw = np.zeros(B, np.int64)
+            rv = np.zeros(B, np.int64)
+            valid_run = np.zeros(B, np.int64)
+            for t in range(run + k - 1):
+                c = staged[:, lane * run + t]
+                valid = c < 4
+                c = np.where(valid, c, 0)
+                fw = ((fw << 2) | c) & kmask
+                rv = (rv >> 2) | ((3 - c) << 2 * (k - 1))
+                valid_run = np.where(valid, valid_run + 1, 0)
+                if t < k - 1:
+                    continue
+                q = q0 + lane * run + t - (k - 1)
+                ok = valid_run >= k
+                if not 0 <= q < P:
+                    assert not ok.any(), q
+                    continue
+                x = ~np.where(fw <= rv, fw, rv) & 0xFFFFFFFF
+                x ^= x >> 16
+                x = (x * 0x85EBCA6B) & 0xFFFFFFFF
+                x ^= x >> 13
+                hs[:, q] = np.where(ok, x - 2**31, BIG)
+                is_fw[:, q] = fw <= rv
+    return hs.astype(np.int32), is_fw
+
+
+@pytest.mark.parametrize("chunk,lanes", [(256, 32), (32, 32), (64, 8)])
+@pytest.mark.parametrize("L,k,w", [(700, 15, 10), (301, 11, 40), (40, 15, 10),
+                                   (15, 15, 10), (20, 15, 10), (90, 7, 1)])
+def test_kernel_rolling_kmers_equal_plain_hashes(chunk, lanes, L, k, w):
+    """hs and is_fw of the rolled k-mers equal the plain version's at every
+    position, invalid ones included (is_fw is defined there, from the codes
+    read as 0), with N at the starts and ends of the lanes' runs."""
+    reads = schedule_reads(9, L, 7 * L + w)
+    run = -(-(min(chunk, L - k + 1) + 2 * (w - 1)) // lanes) | 1
+    for i, r in enumerate(range(5, 9)):     # N where a lane's run starts
+        for p in range(i * (k - 1) - (w - 1), L, run * (i + 2)):
+            if p >= 0:
+                reads[r, p] = 4
+    want = [a.numpy() for a in TR._hash_mask_reference(t8(reads), k, w)[:2]]
+    got = rolling_model(reads, k, w, chunk, lanes)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert (want[0] == BIG).any() or L - k + 1 < 2
+
+
 # --- the index and the packed decisions -------------------------------------
 
 def build_world(seed=0, locus_len=4000, genome_len=60000, n_haps=4):
