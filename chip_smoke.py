@@ -14,13 +14,26 @@ reference-default scheme) on simulated samples whose truth is known:
        of 32,768 pairs); the recruited reads must equal the host engine's;
   (a') the same files through the command line: `cli.main(["add", ...])`
        builds the database, `cli.main(["genotype", ...])` goes from FASTQ to
-       res.json.gz;
+       res.json.gz and the BAM and SAM files of the best genotype
+       (`--out-bams 1 --out-sams 1`), and `genotype --stop-after map` writes
+       every candidate alignment to aln.bam and aln.sam.gz; the files are
+       read back with the port's BAM reader;
   (b)  one HLA-scale locus: 200 haplotypes in 10 clades, 20,100 genotypes at
        the stage-0 filter, recruited by `commands.genotype.recruit_reads`
        (the iterator entry, device pair batches);
   (c)  a long-read panel: 3 loci x 4 haplotypes of 16,384 bp, single reads
        of 12,000 +- 2,000 bases at 10x plus 5x background, recruited by
-       `recruit_reads` in long device batches, aligned at band 160.
+       `recruit_reads` in long device batches, aligned at band 160;
+  (d)  a WGS-like sample through the command line, `add`, `preproc` and
+       `genotype`: one contig of 9,000,000 bases of varying GC with the
+       loci of (a) in its first 2 Mb, and about 450,000 read pairs (150 bp,
+       insert N(400, 60), 0.2 % substitutions) from two copies of it, each
+       carrying one haplotype of the true genotype at each locus, at 7.5x
+       a copy, in two gzip FASTQ files.  `preproc` recruits the whole input
+       to its default background region (the central 4.5 Mb) and estimates
+       from 200,000 pairs of it; the estimated insert mean, depth and
+       mismatch rate must be near the simulated ones, and every call equal
+       the truth.
 
 Every call must equal the simulated truth.  The launch counts are set to 0
 just before each sample and read just after it, and each kernel must have
@@ -74,15 +87,18 @@ tensor cores; all kernels do scalar float32/int32 work only).
 No single PyTorch call computes any of these functions, so `library_ms` is
 null.
 
-With `--profile`, samples (b) and (a), and the recruit phases of (a) and
-(c) alone, are run once more under `torch.profiler` after everything else, and the device's
-busy share of each run and the device time by kernel name are printed
-(before the two closing JSON lines).  With `--resources`, every source is
+With `--profile`, samples (b) and (a), the recruit phases of (a) and (c)
+alone, and the `preproc` of (d) are run once more under `torch.profiler`
+after everything else, and the device's busy share of each run and the
+device time by kernel name are printed (before the two closing JSON lines);
+the `preproc` of (d) runs a third time under cProfile, which prints the
+package's functions with the most host time.  With `--resources`, every source is
 compiled once more with `-Xptxas -v` right after the build, and the
 registers and the spilled bytes of every kernel instantiation are printed.
 """
 import gzip
 import json
+import logging
 import re
 import statistics
 import subprocess
@@ -112,6 +128,7 @@ from locityper_tpu_torch.ops import solver_chains as SC
 from locityper_tpu_torch.ops.solver import SolverConfig, build_bayes_table
 from locityper_tpu_torch.pipeline import LocusData, genotype_panel
 from locityper_tpu_torch.pipeline import recruit_reads as host_recruit_reads
+from locityper_tpu_torch.seq import bam as tbam
 from locityper_tpu_torch.seq import fastx
 from locityper_tpu_torch.seq.contigs import ContigSet
 from locityper_tpu_torch.seq.counts import GenomeKmerCounter, off_target_counts
@@ -135,6 +152,10 @@ EARLIER_MS = {"align_banded": 1.970, "align_banded_long_rows": 18.974,
               "minimizer_front_compact": 0.320, "minimizer_front_full": 0.173}
 DEPTH = 15.0
 BACKGROUND_MULTIPLE = 10        # (a): off-locus read mass / locus flanks
+WGS_CONTIG = 9_000_000          # (d): one contig; preproc's background is
+WGS_LOCUS_GAP = 400_000         # its central 4.5 Mb; loci every 400 kb
+WGS_DEPTH = 7.5                 # (d): depth of each of the two copies
+WGS_SUB_RATE = 0.002            # (d): substitutions a base
 
 
 class Failed(Exception):
@@ -713,38 +734,33 @@ def check_against_host(what, data, rec, read_iter, rp, ordered=True):
           f"row padding moves {moved} of them", flush=True)
 
 
-def run_cli_path(what, tmp, loci, genome, fq1, fq2):
-    """`add` then `genotype` through the command line, FASTQ to
-    res.json.gz, on the default device (CUDA)."""
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def write_locus_files(what, tmp, loci, genome, starts):
+    """ref.fa with one contig `chr1`, loci.bed and haps_<locus>.fa for
+    `add`; the loci's first haplotypes sit in `genome` at `starts`."""
     ref, bed = tmp / "ref.fa", tmp / "loci.bed"
     with open(ref, "w") as f:
         fastx.write_fasta(f, "chr1", genome)
-    pos, rows = 0, []
-    flank = (genome.size - sum(lc.haplotypes[0].size for lc in loci)) \
-        // (len(loci) + 1)
-    for lc in loci:
-        pos += flank
-        rows.append(f"chr1\t{pos}\t{pos + lc.haplotypes[0].size}\t{lc.name}")
-        check(np.array_equal(genome[pos:pos + lc.haplotypes[0].size],
-                             lc.haplotypes[0]), f"{what}: locus not at {pos}")
-        pos += lc.haplotypes[0].size
+    rows = []
+    for lc, pos in zip(loci, starts):
+        end = pos + lc.haplotypes[0].size
+        rows.append(f"chr1\t{pos}\t{end}\t{lc.name}")
+        check(np.array_equal(genome[pos:end], lc.haplotypes[0]),
+              f"{what}: locus not at {pos}")
         with open(tmp / f"haps_{lc.name}.fa", "w") as f:
             for name, seq in zip(lc.hap_names, lc.haplotypes):
                 fastx.write_fasta(f, name, seq)
     bed.write_text("\n".join(rows) + "\n")
-    db, prep, out = tmp / "db", tmp / "sample", tmp / "out"
-    t0 = time.perf_counter()
-    rc = cli.main(["add", "-d", str(db), "-r", str(ref), "-l", str(bed),
-                   "-s", str(tmp / "haps_{}.fa")])
-    check(rc == 0, f"{what}: add returned {rc}")
-    paths.bg_dir(prep).mkdir(parents=True)
-    make_bg().save(paths.bg_dir(prep) / paths.BG_DISTR)
-    t1 = time.perf_counter()
-    rc = cli.main(["genotype", "-i", str(fq1), str(fq2), "-d", str(db),
-                   "-p", str(prep), "-o", str(out), "--seed", "1"])
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    check(rc == 0, f"{what}: genotype returned {rc}")
+    return ref, bed
+
+
+def check_calls(what, out, loci):
+    """Every res.json.gz names the truth; returns the results by locus."""
+    results = {}
     for lc in loci:
         with gzip.open(paths.locus_dir(out, lc.name) / paths.RES_JSON,
                        "rt") as f:
@@ -753,10 +769,268 @@ def run_cli_path(what, tmp, loci, genome, fq1, fq2):
         check(sorted(res["genotype"].split(",")) == truth,
               f"{what} {lc.name}: called {res['genotype']}, truth {truth}")
         check(np.isfinite(res["quality"]), f"{what}: non-finite quality")
+        results[lc.name] = res
+    return results
+
+
+def bam_and_sam(what, bam_path, sam_path):
+    """The records of a BAM (read with the port's seq/bam.py, unmapped and
+    secondary ones too) and the body of its SAM.gz twin, which must agree
+    on name, flag and position record for record."""
+    check(bam_path.exists() and sam_path.exists(),
+          f"{what}: {bam_path.name} or {sam_path.name} missing")
+    recs = list(tbam.read_bam_records(bam_path, keep_flags=0))
+    with gzip.open(sam_path, "rt") as f:
+        body = [line.split("\t") for line in f if not line.startswith("@")]
+    check([(r.name, r.flag, r.pos) for r in recs]
+          == [(b[0], int(b[1]), int(b[3]) - 1) for b in body],
+          f"{what}: {bam_path.name} and {sam_path.name} differ")
+    return recs
+
+
+def check_alignment_files(what, out, loci, results, map_out):
+    """`--out-bams 1 --out-sams 1`: alns/00.bam and alns/00.sam.gz hold one
+    record per mapped mate of every modeled read under the best genotype
+    (one unmapped record where the read went to no haplotype);
+    `--stop-after map`: aln.bam and aln.sam.gz hold every candidate
+    alignment of the same reads.  Returns the record counts."""
+    n_best = n_all = 0
+    for lc in loci:
+        alns = paths.locus_dir(out, lc.name) / paths.ALNS_OUT_DIR
+        recs = bam_and_sam(f"{what} {lc.name}", alns / "00.bam",
+                           alns / "00.sam.gz")
+        per_read = {}
+        for r in recs:
+            per_read.setdefault(r.name, []).append(r)
+        check(len(per_read) == results[lc.name]["total_reads"],
+              f"{what} {lc.name}: {len(per_read)} reads in 00.bam, "
+              f"{results[lc.name]['total_reads']} modeled")
+        for name, mates in per_read.items():
+            mapped = [r for r in mates if not r.flag & tbam.FLAG_UNMAPPED]
+            check(len(mates) == 1 if len(mapped) < len(mates)
+                  else sorted(r.mate_ix for r in mates) in ([0], [1], [0, 1]),
+                  f"{what} {lc.name}: read {name} has records "
+                  f"{[r.flag for r in mates]}")
+        ldir = paths.locus_dir(map_out, lc.name)
+        all_recs = bam_and_sam(f"{what} {lc.name} map", ldir / "aln.bam",
+                               ldir / "aln.sam.gz")
+        check({r.name for r in all_recs} <= set(per_read)
+              and len(all_recs) >= len(recs) - sum(
+                  bool(r.flag & tbam.FLAG_UNMAPPED) for r in recs),
+              f"{what} {lc.name}: aln.bam holds reads or records that the "
+              "model does not")
+        n_best += len(recs)
+        n_all += len(all_recs)
+    return n_best, n_all
+
+
+def run_cli_path(what, tmp, loci, genome, fq1, fq2, device_args=()):
+    """`add` then `genotype` through the command line, FASTQ to
+    res.json.gz and the best genotype's BAM and SAM files, on the default
+    device (CUDA); then `genotype --stop-after map`."""
+    pos, starts = 0, []
+    flank = (genome.size - sum(lc.haplotypes[0].size for lc in loci)) \
+        // (len(loci) + 1)
+    for lc in loci:
+        pos += flank
+        starts.append(pos)
+        pos += lc.haplotypes[0].size
+    ref, bed = write_locus_files(what, tmp, loci, genome, starts)
+    db, prep, out = tmp / "db", tmp / "sample", tmp / "out"
+    t0 = time.perf_counter()
+    rc = cli.main([*device_args, "add", "-d", str(db), "-r", str(ref),
+                   "-l", str(bed), "-s", str(tmp / "haps_{}.fa")])
+    check(rc == 0, f"{what}: add returned {rc}")
+    paths.bg_dir(prep).mkdir(parents=True)
+    make_bg().save(paths.bg_dir(prep) / paths.BG_DISTR)
+    t1 = time.perf_counter()
+    reads = ["-i", str(fq1), str(fq2), "-d", str(db), "-p", str(prep)]
+    rc = cli.main([*device_args, "genotype", *reads, "-o", str(out),
+                   "--seed", "1", "--out-bams", "1", "--out-sams", "1"])
+    sync()
+    t2 = time.perf_counter()
+    check(rc == 0, f"{what}: genotype returned {rc}")
+    results = check_calls(what, out, loci)
+    rc = cli.main([*device_args, "genotype", *reads, "-o",
+                   str(tmp / "out_map"), "--stop-after", "map"])
+    sync()
+    t3 = time.perf_counter()
+    check(rc == 0, f"{what}: genotype --stop-after map returned {rc}")
+    n_best, n_all = check_alignment_files(what, out, loci, results,
+                                          tmp / "out_map")
     print(f"main path {what}: add {t1 - t0:.2f} s, genotype (FASTQ to "
-          f"res.json.gz) {t2 - t1:.2f} s, {len(loci)}/{len(loci)} "
-          f"res.json.gz name the truth; launches "
+          f"res.json.gz, 00.bam, 00.sam.gz) {t2 - t1:.2f} s, "
+          f"{len(loci)}/{len(loci)} res.json.gz name the truth, {n_best} "
+          f"records under the calls; --stop-after map {t3 - t2:.2f} s, "
+          f"{n_all} records in aln.bam; launches "
           f"{dict(_kernels.LAUNCHES)}", flush=True)
+
+
+# -- (d): a WGS-like sample through add, preproc and genotype ----------------
+
+def sample_pairs(rng, copies, depth, sub_rate, read_len=150,
+                 insert_mean=400.0, insert_sd=60.0):
+    """Paired reads drawn uniformly from each sequence of `copies` at
+    `depth` (per copy): fragment lengths N(insert_mean, insert_sd), mate 1
+    from the fragment's start, mate 2 the reverse complement of its end, the
+    mates swapped in half of the pairs, substitutions at `sub_rate`.  One
+    gather per copy.  Returns ([N, read_len] int8, the same) in a random
+    order."""
+    firsts, seconds = [], []
+    ar = np.arange(read_len)
+    for seq in copies:
+        n = int(depth * seq.size / (2 * read_len) + 0.5)
+        ins = np.clip(np.rint(rng.normal(insert_mean, insert_sd, n)),
+                      read_len, seq.size).astype(np.int64)
+        start = (rng.random(n) * (seq.size - ins + 1)).astype(np.int64)
+        m1 = seq[start[:, None] + ar]
+        m2 = 3 - seq[(start + ins - read_len)[:, None] + ar][:, ::-1]
+        swap = rng.random(n) < 0.5
+        m1[swap], m2[swap] = m2[swap], m1[swap]
+        for m in (m1, m2):
+            sub = rng.random(m.shape, dtype=np.float32) < sub_rate
+            m[sub] = (m[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        firsts.append(m1)
+        seconds.append(m2)
+    order = rng.permutation(sum(m.shape[0] for m in firsts))
+    return np.concatenate(firsts)[order], np.concatenate(seconds)[order]
+
+
+def write_fastq_arrays(path, reads, prefix):
+    """One gzip FASTQ of equal-length reads, written as one byte array:
+    names `<prefix><index, 8 digits>`, qualities `I`."""
+    n, L = reads.shape
+    digits = (np.arange(n)[:, None] // 10 ** np.arange(7, -1, -1)) % 10
+    name = np.concatenate([np.full((n, 1), ord("@")),
+                           np.frombuffer(prefix.encode(), np.uint8)[None, :]
+                           .repeat(n, 0), digits + ord("0"),
+                           np.full((n, 1), ord("\n"))], 1)
+    seq = np.frombuffer(b"ACGTN", np.uint8)[reads]
+    plus = np.frombuffer(b"\n+\n", np.uint8)[None, :].repeat(n, 0)
+    qual = np.full((n, L), ord("I"))
+    rec = np.concatenate([name, seq, plus, qual, np.full((n, 1), ord("\n"))],
+                         1).astype(np.uint8)
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        f.write(rec.tobytes())
+
+
+def run_wgs_path(what, tmp, loci, rng, contig_len=WGS_CONTIG,
+                 locus_gap=WGS_LOCUS_GAP, device_args=()):
+    """`add`, `preproc` and `genotype` through the command line on a
+    WGS-like sample: one contig of `contig_len` bases of varying GC with
+    the loci in its first 2 Mb, outside the central background region that
+    `preproc` picks; reads from two copies of it, each carrying one
+    haplotype of the true genotype at each locus, at WGS_DEPTH a copy."""
+    t0 = time.perf_counter()
+    genome = sim.random_genome_gc(rng, contig_len)
+    starts = [locus_gap * (i + 1) for i in range(len(loci))]
+    for lc, pos in zip(loci, starts):
+        genome[pos:pos + lc.haplotypes[0].size] = lc.haplotypes[0]
+    copies = []
+    for c in range(2):
+        parts, prev = [], 0
+        for lc, pos in zip(loci, starts):
+            parts += [genome[prev:pos], lc.haplotypes[lc.true_genotype[c]]]
+            prev = pos + lc.haplotypes[0].size
+        copies.append(np.concatenate(parts + [genome[prev:]]))
+    reads1, reads2 = sample_pairs(rng, copies, WGS_DEPTH, WGS_SUB_RATE)
+    t1 = time.perf_counter()
+    fq1, fq2 = tmp / "wgs_1.fq.gz", tmp / "wgs_2.fq.gz"
+    write_fastq_arrays(fq1, reads1, "w")
+    write_fastq_arrays(fq2, reads2, "w")
+    ref, bed = write_locus_files(what, tmp, loci, genome, starts)
+    t2 = time.perf_counter()
+    print(f"sample {what}: {contig_len:,} bases, {reads1.shape[0]} pairs "
+          f"sampled in {t1 - t0:.1f} s, written to {fq1.name}, {fq2.name} "
+          f"in {t2 - t1:.1f} s", flush=True)
+    db, prep, out = tmp / "db", tmp / "sample", tmp / "out"
+    rc = cli.main([*device_args, "add", "-d", str(db), "-r", str(ref),
+                   "-l", str(bed), "-s", str(tmp / "haps_{}.fa")])
+    check(rc == 0, f"{what}: add returned {rc}")
+    t3 = time.perf_counter()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    preproc = [*device_args, "preproc", "-i", str(fq1), str(fq2), "-r",
+               str(ref), "-o", str(prep)]
+    with LogLines() as log:
+        rc = cli.main(preproc)
+    sync()
+    t4 = time.perf_counter()
+    check(rc == 0, f"{what}: preproc returned {rc}")
+    region = log.find(r"Background region: (\S+)")
+    recruited = int(log.find(r"Recruited (\d+) read pairs"))
+    estimated = int(log.find(r"Subsampled to (\d+) reads for estimation")
+                    or recruited)
+    # preproc's legs from its log: reference, k-mer counts and the
+    # region's index; recruitment; estimation (candidates, K1, counting).
+    marks = [t3] + [log.when(m) for m in ("Recruitment index", "Recruited",
+                                          "Preprocessing done")]
+    legs = " / ".join(f"{b - a:.2f}" for a, b in zip(marks, marks[1:]))
+    bg = BgDistr.load(paths.bg_dir(prep) / paths.BG_DISTR)
+    insert = bg.insert_distr.distr.mean()
+    d = bg.depth.depth_distribution(41)
+    depth = d.mean() * 2 * 2 * 150.0 / bg.depth.window_size
+    mism = float(np.exp(bg.err_prof.ln_mismatch))
+    check(abs(insert / 400.0 - 1) <= 0.05,
+          f"{what}: estimated insert mean {insert:.1f}, simulated 400")
+    check(abs(depth / (2 * WGS_DEPTH) - 1) <= 0.25,
+          f"{what}: estimated depth {depth:.2f}x, simulated "
+          f"{2 * WGS_DEPTH}x")
+    check(0.5 <= mism / WGS_SUB_RATE <= 2.0,
+          f"{what}: estimated mismatch rate {mism:.5f}, simulated "
+          f"{WGS_SUB_RATE}")
+    check(bg.seq_info.total_reads == reads1.shape[0],
+          f"{what}: preproc counted {bg.seq_info.total_reads} pairs")
+    rc = cli.main([*device_args, "genotype", "-i", str(fq1), str(fq2),
+                   "-d", str(db), "-p", str(prep), "-o", str(out),
+                   "--seed", "1"])
+    sync()
+    t5 = time.perf_counter()
+    check(rc == 0, f"{what}: genotype returned {rc}")
+    check_calls(what, out, loci)
+    peak = (torch.cuda.max_memory_allocated() / 2**20
+            if torch.cuda.is_available() else float("nan"))
+    print(f"main path {what}: add {t3 - t2:.2f} s, preproc {t4 - t3:.2f} s "
+          f"(reference, k-mer counts and index / recruitment / estimation "
+          f"{legs} s; background {region}, {recruited} pairs recruited, "
+          f"{estimated} estimated from; insert {insert:.1f}, depth "
+          f"{depth:.2f}x, "
+          f"mismatches {100 * mism:.4f} %), genotype {t5 - t4:.2f} s, "
+          f"{len(loci)}/{len(loci)} res.json.gz name the truth; peak device "
+          f"memory {peak:.0f} MiB; launches {dict(_kernels.LAUNCHES)}",
+          flush=True)
+    return preproc + ["--rerun", "all"]
+
+
+class LogLines(logging.Handler):
+    """Collects the messages of the package's loggers while in use."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append((record.created, record.getMessage()))
+
+    def __enter__(self):
+        logging.getLogger("locityper").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("locityper").removeHandler(self)
+
+    def find(self, pattern):
+        for _, line in self.lines:
+            m = re.search(pattern, line)
+            if m:
+                return m.group(1)
+        return None
+
+    def when(self, start):
+        """The host clock (`time.perf_counter`) of the first message that
+        begins with `start`."""
+        created = next(t for t, line in self.lines if line.startswith(start))
+        return time.perf_counter() - (time.time() - created)
 
 
 def profile_main_path(what, run):
@@ -785,6 +1059,25 @@ def profile_main_path(what, run):
           f"{len(rows)} kernel names", flush=True)
     for ms, count, key in rows[:12]:
         print(f"profile   {ms:9.3f} ms {count:6d} x {key[:90]}", flush=True)
+
+
+def profile_host(what, run, top=14):
+    """One more run under cProfile: the package's functions with the most
+    cumulative host time."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(run)
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((ct, nc, f"{Path(f).name}:{line}:{fn}")
+                   for (f, line, fn), (_cc, nc, _tt, ct, _c) in stats.items()
+                   if "locityper_tpu_torch" in f), reverse=True)
+    print(f"profile {what}: wall {wall:.1f} s under cProfile", flush=True)
+    for ct, nc, key in rows[:top]:
+        print(f"profile   {ct:8.2f} s cumulative {nc:8d} calls {key}",
+              flush=True)
 
 
 class Recorder:
@@ -850,7 +1143,8 @@ FRONT = ("minimizer_front_compact", "minimizer_front_full")
 NEEDS = {"a": ("align_banded", "anneal_chains", FRONT[0]),
          "a_cli": ("align_banded", "anneal_chains", FRONT[0]),
          "b": ("align_banded", "anneal_chains", FRONT[0]),
-         "c": ("align_banded", "anneal_chains", FRONT[1])}
+         "c": ("align_banded", "anneal_chains", FRONT[1]),
+         "d": ("align_banded", "anneal_chains", FRONT[0])}
 
 
 def print_resources():
@@ -990,9 +1284,17 @@ def main():
             run_cli_path("(a') command line: add, genotype", tmp, panel_loci,
                          panel_genome, fq1, fq2)
 
+        wgs_preproc = []
+
+        def run_d():
+            (tmp / "d").mkdir()
+            wgs_preproc[:] = run_wgs_path(
+                "(d) WGS-like, command line: add, preproc, genotype",
+                tmp / "d", panel_loci, np.random.default_rng(4))
+
         recruited = {}
         for key, run in (("a", run_a), ("a_cli", run_cli), ("b", run_b),
-                         ("c", run_c)):
+                         ("c", run_c), ("d", run_d)):
             rec.path = key
             _kernels.reset_launches()
             recruited[key] = run()
@@ -1020,6 +1322,12 @@ def main():
             profile_main_path(
                 "(c) recruit phase alone, traced",
                 lambda: G.recruit_reads(long_data, long_iter(), rp_long))
+            profile_main_path("(d) preproc, traced",
+                              lambda: check(cli.main(wgs_preproc) == 0,
+                                            "(d) preproc, traced"))
+            profile_host("(d) preproc, host functions",
+                         lambda: check(cli.main(wgs_preproc) == 0,
+                                       "(d) preproc, host functions"))
 
     reads, lens, wins, svec, band = rec.align
     k1 = compare_align(reads, lens, wins, svec, band, "main-path launch")

@@ -770,11 +770,6 @@ def run(args):
 def _run(args):
     from .._kernels import resolve_device
     device = resolve_device(getattr(args, "device", None))
-    if args.stop_after == "map" or args.out_sams > 0 or args.out_bams > 0:
-        raise NotImplementedError(
-            "--stop-after map and --out-sams/--out-bams need the SAM/BAM "
-            "writers (model/sam.py), which are not ported yet — ROADMAP.md "
-            "A11")
     if args.in_list:
         listed = [l.strip() for l in open(args.in_list)
                   if l.strip() and not l.startswith("#")]
@@ -868,6 +863,34 @@ def _run(args):
                         len(recruited[name][0]))
         return 0
 
+    if args.stop_after == "map":
+        from ..bg.err_prof import EditDistCache, EditThresh
+        from ..model.locs import build_all_alignments
+        from ..model.sam import write_all_sam
+        params = Params(unmapped_penalty=tech.default_unmapped_penalty())
+        if params.band is None:
+            params.band = 48 if tech.are_short_reads else 160
+        edit_cache = EditDistCache(bg.err_prof, EditThresh.default_for(tech))
+        for name in todo:
+            pairs, names_ = recruited[name]
+            cs = loci[name].contig_set
+            all_alns, _ = build_all_alignments(
+                pairs, names_, cs, loci[name].kmer_counts, bg, edit_cache,
+                params, device=device)
+            ldir = out / paths.LOCI_DIR / name
+            ldir.mkdir(parents=True, exist_ok=True)
+            # aln.bam (reference genotype.rs:1023-1074 writes BAM) plus
+            # the readable SAM.gz twin — one record pass feeds both sinks
+            # (the host traceback CIGAR regeneration runs once).
+            write_all_sam([ldir / "aln.bam", ldir / "aln.sam.gz"], all_alns,
+                          pairs, cs.contigs.names,
+                          [sq.size for sq in cs.seqs], cs.seqs,
+                          bg.err_prof.score_vec(), params.band)
+            logger.info("[%s] wrote %d modeled reads' alignments to "
+                        "aln.bam/aln.sam.gz (%d recruited)", name,
+                        all_alns.n_used, len(pairs))
+        return 0
+
     scheme = Scheme.parse(args.solvers or [])
     params = Params(unmapped_penalty=tech.default_unmapped_penalty(),
                     out_bams=args.out_bams, out_sams=args.out_sams)
@@ -948,6 +971,8 @@ def _run(args):
                 locus=loci[name], read_pairs=pairs, names=names, tag=name,
                 prebuilt=panel_alns[name], priors=locus_priors,
                 explicit_weights=explicit,
+                sam_dir=(ldir / paths.ALNS_OUT_DIR)
+                if (args.out_sams or args.out_bams) else None,
                 sol_path=(ldir / paths.SOL_CSV) if args.debug else None,
                 debug=args.debug, out_dir=ldir))
         solved = genotype_panel(entries, bg, params=params, scheme=scheme,
@@ -970,6 +995,8 @@ def _run(args):
                     scheme=scheme, seed=args.seed + li, tag=name,
                     ploidy=args.ploidy, priors=locus_priors,
                     explicit_weights=explicit,
+                    sam_dir=(ldir / paths.ALNS_OUT_DIR)
+                    if (args.out_sams or args.out_bams) else None,
                     sol_path=(ldir / paths.SOL_CSV) if args.debug else None,
                     debug=args.debug, out_dir=ldir, device=device)
             except Exception:

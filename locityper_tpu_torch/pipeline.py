@@ -178,7 +178,8 @@ def _finalize_locus(result, locus: LocusData, all_alns, tensors, bg: BgDistr,
                     params: Params, ploidy: int, read_pairs,
                     sam_dir) -> None:
     """Shared post-solve steps: unexplained-read count and warnings
-    (solve.rs:636-716)."""
+    (solve.rs:636-716), and the SAM/BAM files of the best genotypes
+    (`--out-sams`, `--out-bams`; model/sam.py)."""
     if not result.genotypes:
         return
     # Unexplained reads (solve.rs:706-716), over all P haps of the call.
@@ -202,10 +203,31 @@ def _finalize_locus(result, locus: LocusData, all_alns, tensors, bg: BgDistr,
         if exp_zeros > 0.1:
             result.warnings.append(f"FewReads({n_reads})")
 
-    if sam_dir is not None and max(params.out_bams, params.out_sams) > 0:
-        raise NotImplementedError(
-            "SAM/BAM output of the predicted assignments (model/sam.py) is "
-            "not ported yet — ROADMAP.md A11")
+    n_out = max(params.out_bams, params.out_sams)
+    if sam_dir is not None and n_out > 0:
+        from .model.sam import write_sam
+        from pathlib import Path
+        Path(sam_dir).mkdir(parents=True, exist_ok=True)
+        hap_names = locus.contig_set.contigs.names
+        hap_lens = [s.size for s in locus.contig_set.seqs]
+        read_names = all_alns.names_used
+        weights = all_alns.weights_used
+        score_vec = bg.err_prof.score_vec()
+        for i, (gt, pred) in enumerate(zip(result.genotypes,
+                                           result.predictions)):
+            if i >= n_out or pred.assignments is None:
+                break
+            paths = ([Path(sam_dir) / f"{i:02d}.bam"]
+                     if i < params.out_bams else [])
+            if i < params.out_sams:
+                paths.append(Path(sam_dir) / f"{i:02d}.sam.gz")
+            write_sam(paths, tuple(gt), tensors,
+                      hap_names, hap_lens, read_names,
+                      pred.assignments[:, :len(read_names)],
+                      read_weights=weights, all_alns=all_alns,
+                      read_pairs=read_pairs,
+                      hap_seqs=locus.contig_set.seqs, score_vec=score_vec,
+                      band=params.band)
 
 
 def genotype_panel(entries: list, bg: BgDistr, params: Params | None = None,
@@ -314,3 +336,194 @@ def _write_read_pairs_csv(out_dir, contig_set, all_alns) -> None:
                 f.write(f"{ra.name}\t{ra.weight:.4f}\t"
                         f"{ra.unmapped_prob:.3f}\t{names[c.hap]}\t"
                         f"{c.ln_prob:.3f}\t{c.middle1}\t{c.middle2}\n")
+
+
+def estimate_bg_from_reads(reads1, reads2, region_seq, region_counter,
+                         technology, window_size=None,
+                         depth_params=None, seed=0,
+                         debug_dir=None, subsampling_rate: float = 1.0,
+                         insert_pval: float = 0.001,
+                         edit_pval: float = 0.01,
+                         max_clipping: float = 0.02,
+                         min_mapq: int = 0, device=None) -> BgDistr:
+    """Estimates all background distributions by aligning reads to a single
+    background region (counterpart of preproc estimate_bg_distrs,
+    command/preproc.rs:1076-1165).
+
+    Filtering parity with the reference:
+    - alignments clipped more than `max_clipping`·len are dropped
+      (preproc.rs:268-269, 303);
+    - `min_mapq` drops ambiguous placements; with the internal aligner
+      MAPQ is derived from the best-vs-second-best ln-prob gap
+      (~4.343·Δln, the usual Phred mapping) — the reference gets the
+      equivalent number from strobealign/minimap2 (preproc.rs:547);
+    - the error profile uses only pairs whose insert size lies in the
+      (1-insert_pval) confidence interval (preproc.rs:1087-1102);
+    - depth counting uses only reads whose edit distance passes the
+      (1-edit_pval) BetaBinomial quantile (preproc.rs:1106-1122).
+
+    The mates are aligned by `model/locs.py:_align_candidates` at band 48
+    in batches of 2,048 jobs.  device: None = CUDA (raises without one);
+    "cpu" = the plain PyTorch version of the aligner."""
+    from .bg import SequencingInfo
+    from .bg.depth import ReadDepth, ReadDepthParams, auto_window_size
+    from .bg.insertsz import InsertDistr
+    from .bg.err_prof import ErrorProfile
+    from .bg.windows import BgWindows
+    from .model.locs import HapMinimizerIndex, _align_candidates
+    from .ops import align as A
+    from .seq.contigs import ContigSet
+
+    device = resolve_device(device)
+    depth_params = depth_params or ReadDepthParams()
+    mean_len = float(np.mean([r.size for r in reads1])) if reads1 else 150.0
+    wsize, neighb = auto_window_size(mean_len) if window_size is None \
+        else (window_size, max(window_size, 300))
+    seq_info = SequencingInfo(mean_len, technology, total_reads=len(reads1))
+
+    cset = ContigSet("bg", ["bg"], [region_seq])
+    hap_index = HapMinimizerIndex(cset, 15, 10)
+    # Preliminary error scores (refined after alignment).
+    prelim = A.Scores.from_error_rates(0.005, 0.001, 0.001)
+    score_vec = np.array(prelim.astuple(), np.float32)
+
+    mates, mate_read, mate_end = [], [], []
+    for i, r1 in enumerate(reads1):
+        mates.append(r1)
+        mate_read.append(i)
+        mate_end.append(0)
+        if reads2:
+            mates.append(reads2[i])
+            mate_read.append(i)
+            mate_end.append(1)
+    jobs = hap_index.candidates_batch_flat(mates, 10, 48, 2, 2)
+    aln_lists = _align_candidates(mates, jobs, cset, score_vec, 48,
+                                  device=device).to_lists(len(mates))
+
+    # Pick the best alignment per mate; drop over-clipped or ambiguous
+    # placements (preproc.rs max_clipping / min_mapq — see docstring).
+    rlens = np.array([m.size for m in mates])
+    best = []
+    for a, L in zip(aln_lists, rlens):
+        if not a:
+            best.append(None)
+            continue
+        srt = sorted(a, key=lambda x: x.ln_prob, reverse=True)
+        b = srt[0]
+        if b.n_clip > max_clipping * int(L):
+            best.append(None)
+            continue
+        if min_mapq > 0 and len(srt) > 1:
+            mapq = 4.342945 * (srt[0].ln_prob - srt[1].ln_prob)
+            if mapq < min_mapq:
+                best.append(None)
+                continue
+        best.append(b)
+    ends_ix = list(mate_end)
+
+    # Insert sizes from best mate alignments (estimated FIRST: the error
+    # profile is restricted to pairs inside the insert confidence
+    # interval, preproc.rs:1085-1102).
+    insert_distr = InsertDistr.undefined()
+    insert_ok = [True] * len(reads1)
+    if reads2:
+        sizes = []
+        same_o = opp_o = 0
+        for i in range(len(reads1)):
+            b1, b2 = best[2 * i], best[2 * i + 1]
+            if b1 is None or b2 is None:
+                continue
+            sizes.append(max(b1.end, b2.end) - min(b1.start, b2.start))
+            if b1.fwd == b2.fwd:
+                same_o += 1
+            else:
+                opp_o += 1
+        insert_distr = InsertDistr.estimate(np.array(sizes), same_o, opp_o)
+        lo, hi = insert_distr.confidence_interval(1.0 - insert_pval)
+        for i in range(len(reads1)):
+            b1, b2 = best[2 * i], best[2 * i + 1]
+            if b1 is None or b2 is None:
+                continue
+            ins = max(b1.end, b2.end) - min(b1.start, b2.start)
+            insert_ok[i] = lo <= ins <= hi
+
+    def _mate_ok(j):
+        return insert_ok[mate_read[j]] if reads2 else True
+
+    # Error profile from exact op counts of the best alignments
+    # (bg/err_prof.rs:152-199), insert-filtered when paired.
+    n_match = n_mism = n_ins = n_del = 0
+    triples = {}
+    for j, (b, L) in enumerate(zip(best, rlens)):
+        if b is None or not _mate_ok(j):
+            continue
+        matches = int(L) - b.n_mism - b.n_ins - b.n_clip
+        n_match += matches
+        n_mism += b.n_mism
+        n_ins += b.n_ins
+        n_del += b.n_del
+        key = (b.edit, int(L))
+        triples[key] = triples.get(key, 0) + 1
+    err_prof = ErrorProfile.estimate(
+        max(n_match, 1), max(n_mism, 1), max(n_ins, 1), max(n_del, 1),
+        [(e, n, float(c)) for (e, n), c in triples.items()])
+
+    # Depth counting below uses only reads whose edit distance passes the
+    # (1-edit_pval) quantile for their length (SingleEditDistCache,
+    # err_prof.rs:333-361); for pairs BOTH mates must pass
+    # (preproc.rs:1110-1122).
+    _edit_cache: dict = {}
+
+    def _edit_ok(j):
+        b = best[j]
+        if b is None:
+            return False
+        L = int(rlens[j])
+        t = _edit_cache.get(L)
+        if t is None:
+            t = err_prof.edit_distr.inv_cdf(L, 1.0 - edit_pval)
+            _edit_cache[L] = t
+        return b.edit <= t
+
+    depth_ok = []
+    for j in range(len(mates)):
+        if reads2:
+            i = mate_read[j]
+            depth_ok.append(_mate_ok(j) and _edit_ok(2 * i)
+                            and _edit_ok(2 * i + 1))
+        else:
+            depth_ok.append(_edit_ok(j))
+
+    # Window depth.
+    win = BgWindows.create(region_seq, 0, region_counter.seq_counts(region_seq),
+                           region_counter.k, wsize, neighb,
+                           depth_params.boundary_size,
+                           0.01 * depth_params.uniq_kmer_perc)
+    middles = []
+    for j, (b, me) in enumerate(zip(best, ends_ix)):
+        if b is not None and me == 0 and depth_ok[j]:
+            middles.append((b.start + b.end) // 2)
+    middles = np.array(middles, np.int64)
+    w = (middles - win.region_start) // wsize
+    ok = (middles >= win.region_start) & (w >= 0) & (w < len(win))
+    depth_counts = np.zeros(len(win), np.int64)
+    np.add.at(depth_counts, w[ok], 1)
+    keep = win.keep
+    if debug_dir is not None:
+        # depth.csv.gz: per-window depth counts with GC and keep flag
+        # (reference bg/depth.rs:204-238 debug writer).
+        from pathlib import Path
+
+        from .utils.io import smart_create
+        Path(debug_dir).mkdir(parents=True, exist_ok=True)
+        with smart_create(Path(debug_dir) / "depth.csv.gz") as f:
+            f.write("window\tstart\tgc\tcount\tkeep\n")
+            for i in range(len(win)):
+                f.write(f"{i}\t{win.region_start + i * wsize}\t"
+                        f"{int(win.gc[i])}\t{int(depth_counts[i])}\t"
+                        f"{int(win.keep[i])}\n")
+    depth = ReadDepth.estimate(depth_counts[keep], win.gc[keep], wsize, neighb,
+                               depth_params,
+                               subsampling_rate=subsampling_rate,
+                               has_gc_bias=technology.has_gc_bias)
+    return BgDistr(seq_info, insert_distr, err_prof, depth)

@@ -168,6 +168,28 @@ def test_payloads_are_32_bit():
     assert int(wrapped["n_clip"][0]) == (70_000 - 16) % 65_536
 
 
+def test_long_declared_reads_equal_the_cpu_path_of_the_jax_package():
+    """The JAX package on the CPU aligns with its XLA `align_batch`
+    (`align_batch_auto` takes the Pallas kernels only off the CPU), whose
+    counts are int32 as the port's: on reads declared 65,535 to 131,072
+    bases long, every output equals the port's.  The 16-bit wrap of
+    `test_payloads_are_32_bit` is the TPU stream kernel's alone."""
+    L, band = 64, 8
+    lens = np.array([65_535, 65_536, 70_000, 131_072], np.int32)
+    reads = np.full((lens.size, L), 4, np.int8)
+    reads[:, :16] = 0
+    reads[1, 5] = reads[3, 9] = 2                 # a mismatch in two rows
+    wins = np.zeros((lens.size, L + band), np.int8)
+    got = run_torch(reads, lens, wins, band)
+    want = {k: np.asarray(v) for k, v in JA.align_batch_auto(
+        reads, lens, wins, SCORE_VEC, band=band).items()}
+    for k in INT_KEYS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_array_equal(got["score"], want["score"])
+    np.testing.assert_array_equal(got["n_clip"], lens - 16)
+    np.testing.assert_array_equal(got["n_mism"], [0, 1, 0, 1])
+
+
 def test_extract_windows_and_edit_equal():
     rng = np.random.default_rng(11)
     hap = random_genome(rng, 500)

@@ -11,11 +11,17 @@ PyTorch versions of the kernels).
 Recruitment is integers only: the recruited reads are compared for equality,
 names and sequences, in order.  The two annealers draw different random
 numbers, so calls are compared for equality and likelihoods within the
-tolerance of tests/test_torch_pipeline.py.
+tolerance of tests/test_torch_pipeline.py.  The port's own `add` →
+`preproc` → `genotype` runs without that directory; `--stop-after map`
+involves no solver, so its aln.bam and aln.sam.gz are compared with the JAX
+package's record for record, and the writers of the called genotypes'
+files (`write_sam`) at the function, on the same assignments.
 """
 import gzip
 import json
 import shutil
+import sys
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -27,10 +33,15 @@ from locityper_tpu import sim
 from locityper_tpu.seq import bam as jbam
 from locityper_tpu.seq import fastx
 from locityper_tpu.utils.io import smart_create
+from locityper_tpu_torch import bg as tbg
 from locityper_tpu_torch import cli as tcli
 from locityper_tpu_torch import pipeline as tpipeline
 from locityper_tpu_torch.commands import genotype as TG
+from locityper_tpu_torch.seq import bam as tbam
 from locityper_tpu_torch.seq.recruit import RecruitParams
+
+sys.path.insert(0, str(Path(__file__).parent))
+from test_torch_preproc import assert_same_json  # noqa: E402
 
 torch.set_num_threads(1)        # the suite runs several workers side by side
 
@@ -218,19 +229,144 @@ def test_in_list_leave_out_and_knobs(world, tmp_path):
                      "-p", world.prep, "-o", tmp_path / "o3") == 1
 
 
-@pytest.mark.parametrize("extra", [["--stop-after", "map"],
-                                   ["--out-sams", "1"], ["--out-bams", "2"]])
-def test_unported_outputs_raise(world, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="A11"):
-        torch_cli("genotype", *world.base, "-o", tmp_path / "o", *extra)
-    assert not (tmp_path / "o" / "loci").exists()
+def bam_records(path):
+    """Every record of a BAM, unmapped and secondary ones too."""
+    return [(r.name, r.flag, r.ref_id, r.pos, r.mapq, r.cigar,
+             r.seq.tobytes(), r.tags)
+            for r in tbam.read_bam_records(path, keep_flags=0)]
 
 
-def test_preproc_raises(world, tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
-        torch_cli("preproc", "-i", world.r1, world.r2, "-r",
-                  world.root / "ref.fa", "-o", tmp_path / "s", "-b",
-                  "chr1:10000-110000", "--max-reads", "8000")
+def sam_lines(path):
+    with gzip.open(path, "rt") as f:
+        return f.read().splitlines()
+
+
+def test_port_cli_add_preproc_genotype_calls_the_truth(world, tmp_path):
+    """`add`, `preproc` and `genotype`, all through the port's command line:
+    no file of the JAX package's.  The port's `bg/distr.json.gz` equals the
+    one the JAX package wrote with the same flags (floats within a relative
+    1e-9, as in tests/test_torch_preproc.py), and the JAX package's
+    `genotype` reads it and calls the truth as well."""
+    db, prep = tmp_path / "db", tmp_path / "sample"
+    assert torch_cli("add", "-d", db, "-r", world.root / "ref.fa", "-l",
+                     world.root / "loci.bed", "-s",
+                     world.root / "haps_{}.fa") == 0
+    assert torch_cli("preproc", "-i", world.r1, world.r2, "-r",
+                     world.root / "ref.fa", "-o", prep, "-b",
+                     "chr1:10000-110000", "--max-reads", "8000") == 0
+    with gzip.open(prep / "bg" / "distr.json.gz", "rt") as f:
+        t_distr = json.load(f)
+    with gzip.open(world.prep / "bg" / "distr.json.gz", "rt") as f:
+        j_distr = json.load(f)
+    assert_same_json(j_distr, t_distr)
+    args = ["-i", world.r1, world.r2, "-d", db, "-p", prep, *LIGHT,
+            "--seed", "5"]
+    assert torch_cli("genotype", *args, "-o", tmp_path / "t_out") == 0
+    assert jcli.main(["genotype", *map(str, args), "-o",
+                      str(tmp_path / "j_out"), "--loci", "GENE1"]) == 0
+    for out, names in ((tmp_path / "t_out", LOCI),
+                       (tmp_path / "j_out", ("GENE1",))):
+        for name in names:
+            res = read_json(out / "loci" / name / "res.json.gz")
+            assert sorted(res["genotype"].split(",")) == world.truth[name]
+
+
+def test_stop_after_map_equals_reference(world, tmp_path):
+    """aln.bam and aln.sam.gz: every candidate alignment of every modeled
+    read, equal to the JAX package's record for record."""
+    j_out, t_out = tmp_path / "j", tmp_path / "t"
+    assert jcli.main(["genotype", *world.base, "-o", str(j_out),
+                      "--stop-after", "map"]) == 0
+    assert torch_cli("genotype", *world.base, "-o", t_out,
+                     "--stop-after", "map") == 0
+    for name in LOCI:
+        j_dir, t_dir = j_out / "loci" / name, t_out / "loci" / name
+        assert not (t_dir / "res.json.gz").exists()
+        j_sam, t_sam = sam_lines(j_dir / "aln.sam.gz"), \
+            sam_lines(t_dir / "aln.sam.gz")
+        assert t_sam == j_sam
+        j_bam, t_bam = bam_records(j_dir / "aln.bam"), \
+            bam_records(t_dir / "aln.bam")
+        assert t_bam == j_bam
+        n_body = sum(not line.startswith("@") for line in t_sam)
+        assert len(t_bam) == n_body > 300
+
+
+def test_write_sam_equals_reference(world, tmp_path):
+    """Both packages' `write_sam` on the same genotype, locus tensors,
+    alignments and assignments (random slots of 6 attempts, the unmapped
+    slot included): the SAM text equal line for line, the BAM equal record
+    for record."""
+    from locityper_tpu.model import sam as jsam
+    from locityper_tpu_torch.bg.err_prof import EditDistCache, EditThresh
+    from locityper_tpu_torch.model import Params
+    from locityper_tpu_torch.model import sam as tsam
+    from locityper_tpu_torch.model.assgn import LocusTensors
+    from locityper_tpu_torch.model.locs import build_all_alignments
+
+    name = "GENE1"
+    locus = TG.load_locus(world.db, name)
+    bg = tbg.BgDistr.load(world.prep / "bg" / "distr.json.gz")
+    pairs, names = tpipeline.recruit_reads(
+        {name: locus}, iter(world.reads), RecruitParams(match_frac=0.5),
+        pad=PAD)[name]
+    params = Params(unmapped_penalty=bg.seq_info.technology
+                    .default_unmapped_penalty())
+    params.set_tweak_size(bg.depth.window_size)
+    params.band = 48
+    cache = EditDistCache(bg.err_prof, EditThresh.default_for(
+        bg.seq_info.technology))
+    all_alns, _ = build_all_alignments(pairs, names, locus.contig_set,
+                                       locus.kmer_counts, bg, cache, params,
+                                       device="cpu")
+    tensors = LocusTensors.build(all_alns)
+    lc = world.loci[0]
+    gt = tuple(sorted(lc.true_genotype))
+    rng = np.random.default_rng(9)
+    assignments = rng.integers(0, len(gt) * tensors.kh + 1,
+                               (6, all_alns.n_used)).astype(np.int32)
+    cs = locus.contig_set
+    kw = dict(read_weights=all_alns.weights_used, all_alns=all_alns,
+              read_pairs=pairs, hap_seqs=cs.seqs,
+              score_vec=bg.err_prof.score_vec(), band=params.band)
+    for sam, side in ((jsam, "j"), (tsam, "t")):
+        sam.write_sam([tmp_path / f"{side}.bam", tmp_path / f"{side}.sam.gz"],
+                      gt, tensors, cs.contigs.names,
+                      [s.size for s in cs.seqs], all_alns.names_used,
+                      assignments, **kw)
+    t_sam = sam_lines(tmp_path / "t.sam.gz")
+    assert t_sam == sam_lines(tmp_path / "j.sam.gz")
+    t_bam = bam_records(tmp_path / "t.bam")
+    assert t_bam == bam_records(tmp_path / "j.bam")
+    assert len(t_bam) == sum(not line.startswith("@") for line in t_sam)
+    assert any(r[1] & 0x4 for r in t_bam) and any(r[5] for r in t_bam)
+
+
+def test_out_sams_and_bams_are_written_and_parse(world, tmp_path):
+    """`--out-sams 1 --out-bams 2`: 00.bam, 01.bam and 00.sam.gz under each
+    locus's alns/, readable by the port's BAM reader, one record per mapped
+    mate of every modeled read under the best genotype."""
+    out = tmp_path / "out"
+    assert torch_cli("genotype", *world.base, "-o", out, *LIGHT, "--seed",
+                     "5", "--out-sams", "1", "--out-bams", "2") == 0
+    for name in LOCI:
+        alns = out / "loci" / name / "alns"
+        assert sorted(p.name for p in alns.iterdir()) == \
+            ["00.bam", "00.sam.gz", "01.bam"]
+        res = read_json(out / "loci" / name / "res.json.gz")
+        assert sorted(res["genotype"].split(",")) == world.truth[name]
+        recs = bam_records(alns / "00.bam")
+        body = [line.split("\t") for line in sam_lines(alns / "00.sam.gz")
+                if not line.startswith("@")]
+        assert [(r[0], r[1], r[3]) for r in recs] == \
+            [(b[0], int(b[1]), int(b[3]) - 1) for b in body]
+        modeled = {r[0] for r in recs}
+        assert len(modeled) == res["total_reads"]
+        for rname in modeled:
+            mates = [r for r in recs if r[0] == rname]
+            assert len(mates) in (1, 2)
+            assert all(not r[1] & 0x4 for r in mates) or len(mates) == 1
+        assert len(bam_records(alns / "01.bam")) > 0
 
 
 @pytest.mark.parametrize("where", ["align", "solve"])

@@ -2,7 +2,8 @@
 
 A subprocess poisons `sys.modules["jax"]` and `sys.modules["locityper_tpu"]`,
 imports every module of `locityper_tpu_torch` and genotypes a tiny locus on
-`device="cpu"`, from two FASTQ files through the device recruiter; another
+`device="cpu"`, from two FASTQ files through the device recruiter, writing
+the called genotype's SAM file; another
 runs `python -m locityper_tpu_torch.cli --help` poisoned the same way; the
 sources of the package, of `chip_smoke.py` and of `time_minimizer_front.py`
 are also searched for such imports.
@@ -37,8 +38,8 @@ for n in names:
 for n in ("cli", "commands.genotype", "commands.recruit", "commands.add",
           "commands.align", "commands.boundary", "commands.index",
           "commands.paf_vcf", "commands.preproc", "commands.prune",
-          "ops.recruit", "seq.bam", "seq.bai", "seq.cram", "seq.crai",
-          "seq.dist", "seq.panvcf"):
+          "model.sam", "ops.recruit", "seq.bam", "seq.bai", "seq.cram",
+          "seq.crai", "seq.dist", "seq.panvcf"):
     assert "locityper_tpu_torch." + n in names, n
 assert not any(k == "jax" or k.startswith("jax.") for k, v in
                sys.modules.items() if v is not None)
@@ -102,11 +103,18 @@ cache = EditDistCache(bg.err_prof, EditThresh.default_for(tech))
 built = build_all_alignments_panel(
     [(rec["T0"][0], rec["T0"][1], data["T0"].contig_set,
       data["T0"].kmer_counts)], bg, cache, params, device="cpu")
-out = genotype_panel(
-    [dict(locus=data["T0"], read_pairs=rec["T0"][0], names=rec["T0"][1],
-          tag="T0", prebuilt=built[0])], bg, params=params,
-    scheme=Scheme.parse(["greedy:i=5k,a=1,p=30", "anneal:i=3,a=3,n=300,p=150"]),
-    seed=2, device="cpu")
+params.out_sams = 1
+with tempfile.TemporaryDirectory() as sam_dir:
+    out = genotype_panel(
+        [dict(locus=data["T0"], read_pairs=rec["T0"][0], names=rec["T0"][1],
+              tag="T0", prebuilt=built[0], sam_dir=sam_dir)], bg,
+        params=params,
+        scheme=Scheme.parse(["greedy:i=5k,a=1,p=30",
+                             "anneal:i=3,a=3,n=300,p=150"]),
+        seed=2, device="cpu")
+    import gzip, os
+    with gzip.open(os.path.join(sam_dir, "00.sam.gz"), "rt") as f:
+        assert sum(not l.startswith("@") for l in f) > 50
 call = tuple(sorted(int(h) for h in out[0][0].genotypes[0]))
 assert call == truth, (call, truth)
 print("OK", len(names), call)
