@@ -34,6 +34,24 @@ reference-default scheme) on simulated samples whose truth is known:
        from 200,000 pairs of it; the estimated insert mean, depth and
        mismatch rate must be near the simulated ones, and every call equal
        the truth.
+  (a-seq) the files of (a') through `genotype` once more under the
+       sequential engine, `-S greedy:i=5k,a=1,e=seq anneal:i=20,a=20,e=seq`
+       (the reference greedy, then one Metropolis chain an attempt; plain
+       PyTorch on the card, no kernel of its own): every call must equal the
+       truth and the chains engine's call of (a'), and the annealer kernel
+       must not be launched;
+  (e)  extra/validate_stream_100k.py's case rebuilt with the port's
+       `sim.py`: one locus of 98,304 bp (4 haplotypes, 1 % divergence)
+       between random flanks of 50 kb, ONT-like single reads (2 % / 0.8 % /
+       0.8 % errors) of 20 +- 5 kb at 8x, at least 8 reads of 65,537 to
+       98,304 bases, and 4x of background from the left flank, recruited by
+       `recruit_reads` (full-width front end at rows of 131,072), aligned at
+       band 160 on rows longer than 65,536, default scheme.
+
+Before the samples, the sequential engine runs on the card against the CPU
+on tests/test_ilp.py's problems: its greedy must give equal assignments and
+likelihoods within 1e-4 on both, and its annealing chain must reach the ILP
+optimum on the card.
 
 Every call must equal the simulated truth.  The launch counts are set to 0
 just before each sample and read just after it, and each kernel must have
@@ -124,6 +142,7 @@ from locityper_tpu_torch.model.locs import build_all_alignments_panel
 from locityper_tpu_torch.model.windows import ContigInfoPack
 from locityper_tpu_torch.ops import align as A
 from locityper_tpu_torch.ops import recruit as R
+from locityper_tpu_torch.ops import solver as SQ
 from locityper_tpu_torch.ops import solver_chains as SC
 from locityper_tpu_torch.ops.solver import SolverConfig, build_bayes_table
 from locityper_tpu_torch.pipeline import LocusData, genotype_panel
@@ -156,6 +175,9 @@ WGS_CONTIG = 9_000_000          # (d): one contig; preproc's background is
 WGS_LOCUS_GAP = 400_000         # its central 4.5 Mb; loci every 400 kb
 WGS_DEPTH = 7.5                 # (d): depth of each of the two copies
 WGS_SUB_RATE = 0.002            # (d): substitutions a base
+SEQ_SCHEME = ["greedy:i=5k,a=1,e=seq", "anneal:i=20,a=20,e=seq"]
+BIG_LOCUS = 98_304              # (e): extra/validate_stream_100k.py
+BIG_READS = (65_536, 98_304)    # (e): longer than the first, at most the second
 
 
 class Failed(Exception):
@@ -489,6 +511,74 @@ def phase_k2():
           f"{r['moves'] / r['ms'] * 1e3:.3e} moves/s, "
           f"{r['rounds_per_batch']:.2f} rounds a batch "
           f"(plain {r['plain_ms']:.0f} ms)", flush=True)
+
+
+# -- the sequential engine ---------------------------------------------------
+
+def seq_solve(device, problem, gts, attempts, random_init, seed, **steps):
+    tensors, pack, bayes, params = problem
+    cfg = SolverConfig(depth_contrib=params.depth_contrib,
+                       aln_contrib=params.aln_contrib,
+                       prob_diff=params.prob_diff, tweak=0,
+                       window_size=pack.window_size, **steps)
+    liks, assgn = SQ.solve_genotypes(
+        seed, gts, tensors.hap_prob, tensors.hap_mid, tensors.unmapped_prob,
+        pack.n_windows, pack.reg_start, pack.contig_len, pack.gc_at,
+        pack.weight_at, bayes, cfg, n_attempts=attempts,
+        max_windows=pack.max_windows, random_init=random_init, device=device)
+    return liks.cpu().numpy(), assgn.cpu().numpy()
+
+
+def phase_seq():
+    """The sequential engine (plain PyTorch, no kernel of its own) on the
+    card: its greedy walks as on the CPU (float32 adds and multiplies of
+    gathered values, counted draws), and its annealing chain reaches the
+    exact ILP optimum of tests/test_ilp.py's problems (best of 64 attempts,
+    4,000 + 4,000 steps), every likelihood equal to a host re-scoring."""
+    problem = small_problem(1)
+    gts = np.array([(a, b) for a in range(3) for b in range(a, 3)], np.int64)
+    greedy = dict(anneal_steps=0, polish_steps=0, greedy_sample=10,
+                  plato_size=100)
+    t0 = time.perf_counter()
+    card = seq_solve("cuda", problem, gts, 8, True, 3, **greedy)
+    sync()
+    t1 = time.perf_counter()
+    host = seq_solve("cpu", problem, gts, 8, True, 3, **greedy)
+    n_bad = int((card[1] != host[1]).sum())
+    err = float(np.abs(card[0] - host[0]).max())
+    check(n_bad == 0, f"seq greedy: {n_bad} assignments differ between the "
+                      "card and the CPU")
+    check(err <= 1e-4, f"seq greedy: likelihoods differ by {err}")
+    print(f"seq greedy, {gts.shape[0]} genotypes x 8 attempts: equal "
+          f"assignments on the card and the CPU, likelihoods within {err:.1e}"
+          f"; {t1 - t0:.2f} s on the card", flush=True)
+    worst = gap = 0.0
+    t0 = time.perf_counter()
+    for seed in (0, 1, 2):
+        tensors, pack, bayes, params = problem = small_problem(seed)
+        gt = (0, 2)
+        _, ilp_lik = ilp.solve_ilp(gt, tensors, pack, bayes, params)
+        liks, assgn = seq_solve("cuda", problem, np.array([gt]), 64, True,
+                                seed, anneal_steps=4000, polish_steps=4000)
+        best = float(liks.max())
+        gap = max(gap, abs(best - ilp_lik))
+        check(abs(best - ilp_lik) <= 1e-3 and best <= ilp_lik + 1e-3,
+              f"seq chain best {best} != ILP optimum {ilp_lik} on problem "
+              f"{seed}")
+        probs, wins, valid, win_gc, win_weight = ilp.assemble_genotype_host(
+            gt, tensors, pack, bayes, params.prob_diff)
+        for a in range(0, 64, 8):
+            check(valid[np.arange(assgn.shape[2]), assgn[0, a]].all(),
+                  "seq chain: an invalid candidate")
+            host = ilp.likelihood_of_assignment(
+                assgn[0, a], probs, wins, win_gc, win_weight, bayes,
+                params.depth_contrib, params.aln_contrib)
+            worst = max(worst, abs(float(liks[0, a]) - host))
+    check(worst <= 1e-3, f"seq chain likelihood vs host re-scoring: {worst}")
+    print(f"seq chain 4,000 + 4,000 steps, 64 attempts, on the card: reaches "
+          f"the ILP optimum of problems 0-2 (within {gap:.1e}); likelihood "
+          f"vs host re-scoring max {worst:.1e}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 # -- K3 / K5 -----------------------------------------------------------------
@@ -866,6 +956,100 @@ def run_cli_path(what, tmp, loci, genome, fq1, fq2, device_args=()):
           f"{dict(_kernels.LAUNCHES)}", flush=True)
 
 
+def run_seq_cli(what, tmp, loci, fq1, fq2, greedy_iters, device_args=()):
+    """(a-seq): (a')'s files, database and background through `genotype`
+    under the sequential engine; every call must equal the truth and the
+    chains engine's call in (a')'s res.json.gz.  `greedy_iters` receives
+    the iterations of every greedy chain."""
+    db, prep, out = tmp / "db", tmp / "sample", tmp / "out_seq"
+    with LogLines() as log:
+        t0 = time.perf_counter()
+        rc = cli.main([*device_args, "genotype", "-i", str(fq1), str(fq2),
+                       "-d", str(db), "-p", str(prep), "-o", str(out),
+                       "--seed", "1", "-S", *SEQ_SCHEME])
+        sync()
+        t1 = time.perf_counter()
+    check(rc == 0, f"{what}: genotype returned {rc}")
+    results = check_calls(what, out, loci)
+    chains = check_calls(f"{what}, chains engine", tmp / "out", loci)
+    for lc in loci:
+        check(sorted(results[lc.name]["genotype"].split(","))
+              == sorted(chains[lc.name]["genotype"].split(",")),
+              f"{what} {lc.name}: seq called {results[lc.name]['genotype']}, "
+              f"chains {chains[lc.name]['genotype']}")
+    stages = [log.find(rf"Stage {i} \((?:greedy|anneal)\):.* in ([\d.]+)s")
+              for i in (1, 2)]
+    check(all(stages), f"{what}: no stage times in the log")
+    check(greedy_iters, f"{what}: no greedy chain ran")
+    iters = torch.cat([t.cpu() for t in greedy_iters]).double()
+    print(f"main path {what}: genotype (FASTQ to res.json.gz) "
+          f"{t1 - t0:.2f} s, solve stage 1 (greedy) {stages[0]} s, stage 2 "
+          f"(anneal) {stages[1]} s; greedy iterations to plateau mean "
+          f"{float(iters.mean()):.1f}, max {int(iters.max())} over "
+          f"{iters.numel()} chains; {len(loci)}/{len(loci)} res.json.gz name "
+          f"the truth and equal the chains engine's calls; launches "
+          f"{dict(_kernels.LAUNCHES)}", flush=True)
+
+
+def build_100k_sample(rng, locus_len=BIG_LOCUS, flank=50_000,
+                      long_reads=(84_000, 6_000), read_len=(20_000, 5_000),
+                      window=2000):
+    """extra/validate_stream_100k.py's case with the port's sim.py: one
+    locus of `locus_len` (4 haplotypes, 1 % divergence) between random
+    flanks, ONT-like reads of the true genotype at 8x plus reads of
+    `long_reads` (mean, sd) at 5x, 4x of background from the left flank.
+    Returns (locus, data, names, reads, bg, rp)."""
+    locus = sim.simulate_locus(rng, "BIG", length=locus_len, n_haps=4,
+                               divergence=0.01)
+    genome = np.concatenate([sim.random_genome(rng, flank),
+                             locus.haplotypes[0],
+                             sim.random_genome(rng, flank)])
+    counter = GenomeKmerCounter(25)
+    counter.add_seq(genome)
+    counter.finalize()
+    kc = off_target_counts(counter, locus.haplotypes, locus.haplotypes[0])
+    data = {locus.name: LocusData(
+        ContigSet(locus.name, locus.hap_names, locus.haplotypes), kc)}
+    err = sim.ErrorModel(mismatch=0.02, insertion=0.008, deletion=0.008)
+    haps = [locus.haplotypes[i] for i in locus.true_genotype]
+    pools = [
+        sim.simulate_single_reads(rng, haps, depth=8.0,
+                                  read_len_mean=read_len[0],
+                                  read_len_sd=read_len[1], errors=err,
+                                  prefix="big"),
+        sim.simulate_single_reads(rng, haps, depth=5.0,
+                                  read_len_mean=long_reads[0],
+                                  read_len_sd=long_reads[1], errors=err,
+                                  prefix="long"),
+        sim.simulate_single_reads(rng, [genome[:flank]], depth=4.0,
+                                  read_len_mean=read_len[0],
+                                  read_len_sd=read_len[1], errors=err,
+                                  prefix="bg")]
+    names = [n for p in pools for n in p.names]
+    reads = [r for p in pools for r in p.reads1]
+    # Read middles a window and haplotype, from the mixture of lengths.
+    m = (8.0 * window / read_len[0] + 5.0 * window / long_reads[0]) / 2.0
+    bg = BgDistr(SequencingInfo(float(read_len[0]), Technology.NANOPORE),
+                 InsertDistr.undefined(),
+                 ErrorProfile.estimate(950000, 20000, 8000, 8000,
+                                       [(700, 20000, 50.0),
+                                        (780, 20000, 30.0)]),
+                 ReadDepth(2, window, max(window, 300),
+                           [NBinom.estimate(m, m * 1.5)] * 101))
+    rp = RecruitParams(
+        match_frac=Technology.NANOPORE.default_match_frac(False),
+        match_length=2000)
+    return locus, data, names, reads, bg, rp
+
+
+def longest_jobs(lens, longer_than, n=8):
+    """Up to n jobs of one launch whose reads are longer than
+    `longer_than`, the shortest such first (the plain aligner walks as
+    many rows as the longest read it is given)."""
+    over = torch.nonzero(lens > longer_than)[:, 0]
+    return over[torch.argsort(lens[over], stable=True)[:n]]
+
+
 # -- (d): a WGS-like sample through add, preproc and genotype ----------------
 
 def sample_pairs(rng, copies, depth, sub_rate, read_len=150,
@@ -1082,11 +1266,14 @@ def profile_host(what, run, top=14):
 
 class Recorder:
     """Keeps the inputs of the largest launch of each kernel on the main
-    path (for the annealer: of each of its two modes; for the aligner: also
-    of its largest launch on rows longer than LONG_ROWS; for the minimizer
-    front end: of each of its two entries), to hold the kernel against its
-    plain version and time it afterwards on inputs the path really gave
-    it."""
+    path (for the annealer: of each of its two modes; for the aligner: of
+    its largest launch on rows of at most LONG_ROWS, and of its largest on
+    longer rows outside (e); for the minimizer front end: of each of its
+    two entries), to hold the kernel against its plain version and time it
+    afterwards on inputs the path really gave it.  (e)'s launches are kept
+    apart, by width (`widest`): the plain aligner walks every row of the
+    longest read it is given, 99 s for (e)'s widest launch, so (e) is held
+    on 8 jobs of it."""
 
     def __init__(self):
         self.align = None
@@ -1095,21 +1282,35 @@ class Recorder:
         self.path = None
         self.anneal = {}                # mode -> (args, kw, size)
         self.front = {}                 # entry -> (reads, k, w, S)
+        self.widest = {}                # (path, kernel) -> widest launch
+        self.greedy_iters = {}          # path -> [iterations of its chains]
         self._align_banded = A.align_banded
         self._anneal_chains = SC.anneal_chains
         self._minimizer_front = R.minimizer_front
+        self._greedy_chain = SQ._greedy_chain
+
+    def _keep_widest(self, kernel, reads, args):
+        key = (self.path, kernel)
+        if key not in self.widest \
+                or reads.shape[1] > self.widest[key][0].shape[1]:
+            self.widest[key] = args
 
     def __enter__(self):
         def align_banded(reads, rlens, hap_wins, score_vec, band=48,
                          max_del_run=32):
             args = (reads, rlens, hap_wins, score_vec, band)
-            if self.align is None or reads.numel() > self.align[0].numel():
+            if reads.shape[1] <= LONG_ROWS and (
+                    self.align is None
+                    or reads.numel() > self.align[0].numel()):
                 self.align = args
+            if reads.shape[0]:
+                self._keep_widest("align", reads, args)
             if reads.shape[1] > LONG_ROWS and reads.shape[0]:
                 self.n_align_long[self.path] = \
                     self.n_align_long.get(self.path, 0) + 1
-                if self.align_long is None \
-                        or reads.numel() > self.align_long[0].numel():
+                if self.path != "e" and (
+                        self.align_long is None
+                        or reads.numel() > self.align_long[0].numel()):
                     self.align_long = args
             return self._align_banded(reads, rlens, hap_wins, score_vec,
                                       band, max_del_run)
@@ -1126,25 +1327,38 @@ class Recorder:
             if entry not in self.front \
                     or reads.numel() > self.front[entry][0].numel():
                 self.front[entry] = (reads, k, w, S)
+            if reads.shape[0]:
+                self._keep_widest(entry, reads, (reads, k, w, S))
             return self._minimizer_front(reads, k, w, S)
 
+        def greedy_chain(*args, **kw):
+            out = self._greedy_chain(*args, **kw)
+            self.greedy_iters.setdefault(self.path, []).append(out[2])
+            return out
+
         A.align_banded, SC.anneal_chains = align_banded, anneal_chains
-        R.minimizer_front = minimizer_front
+        R.minimizer_front, SQ._greedy_chain = minimizer_front, greedy_chain
         return self
 
     def __exit__(self, *exc):
         A.align_banded, SC.anneal_chains = (self._align_banded,
                                             self._anneal_chains)
         R.minimizer_front = self._minimizer_front
+        SQ._greedy_chain = self._greedy_chain
 
 
 FRONT = ("minimizer_front_compact", "minimizer_front_full")
 #: kernels that each sample must launch
 NEEDS = {"a": ("align_banded", "anneal_chains", FRONT[0]),
          "a_cli": ("align_banded", "anneal_chains", FRONT[0]),
+         "a_seq": ("align_banded", FRONT[0]),
          "b": ("align_banded", "anneal_chains", FRONT[0]),
          "c": ("align_banded", "anneal_chains", FRONT[1]),
-         "d": ("align_banded", "anneal_chains", FRONT[0])}
+         "d": ("align_banded", "anneal_chains", FRONT[0]),
+         "e": ("align_banded", "anneal_chains", FRONT[1])}
+#: kernels that a sample must not launch: (a-seq) solves with the
+#: sequential engine, which has no kernel of its own
+NEVER = {"a_seq": ("anneal_chains",)}
 
 
 def print_resources():
@@ -1223,6 +1437,7 @@ def main():
     phase_k1_edges(sv)
     phase_k2()
     phase_front()
+    phase_seq()
 
     rng = np.random.default_rng(0)
     panel_loci = [sim.simulate_locus(rng, f"B{i}", length=4000, n_haps=6,
@@ -1238,6 +1453,17 @@ def main():
                                     divergence=0.01) for i in range(3)]
     long_data, (long_names, long_reads) = build_long_sample(long_loci,
                                                             rng_long)
+    t0 = time.perf_counter()
+    big_locus, big_data, big_names, big_reads, bg_big, rp_big = \
+        build_100k_sample(np.random.default_rng(17))
+    n_big = sum(BIG_READS[0] < r.size <= BIG_READS[1] for r in big_reads)
+    check(n_big >= 8, f"sample (e): {n_big} reads of {BIG_READS[0] + 1:,} "
+                      f"to {BIG_READS[1]:,} bases")
+    print(f"sample (e): {len(big_reads)} reads, "
+          f"{sum(r.size for r in big_reads):,} bases, {n_big} of them of "
+          f"{BIG_READS[0] + 1:,} to {BIG_READS[1]:,} bases, longest "
+          f"{max(r.size for r in big_reads):,}; built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     bg, bg_long = make_bg(), make_bg_long()
     rp = RecruitParams(match_frac=Technology.ILLUMINA.default_match_frac(True))
@@ -1284,6 +1510,21 @@ def main():
             run_cli_path("(a') command line: add, genotype", tmp, panel_loci,
                          panel_genome, fq1, fq2)
 
+        def run_seq():
+            run_seq_cli("(a-seq) command line: genotype -S ...,e=seq", tmp,
+                        panel_loci, fq1, fq2,
+                        rec.greedy_iters.setdefault("a_seq", []))
+
+        def run_e(seed=5):
+            return run_main_path(
+                "(e) long reads, one locus of 98,304 bp, reads up to "
+                f"{max(r.size for r in big_reads):,} bases", [big_locus],
+                big_data, len(big_reads),
+                lambda: G.recruit_reads(
+                    big_data, ((n, r, None) for n, r in zip(big_names,
+                                                            big_reads)),
+                    rp_big)[0], bg_big, 160, seed)
+
         wgs_preproc = []
 
         def run_d():
@@ -1293,8 +1534,9 @@ def main():
                 tmp / "d", panel_loci, np.random.default_rng(4))
 
         recruited = {}
-        for key, run in (("a", run_a), ("a_cli", run_cli), ("b", run_b),
-                         ("c", run_c), ("d", run_d)):
+        for key, run in (("a", run_a), ("a_cli", run_cli),
+                         ("a_seq", run_seq), ("b", run_b), ("c", run_c),
+                         ("d", run_d), ("e", run_e)):
             rec.path = key
             _kernels.reset_launches()
             recruited[key] = run()
@@ -1302,6 +1544,9 @@ def main():
             for name in NEEDS[key]:
                 check(launches[key][name] > 0, f"kernel {name} was never "
                       f"launched by main path ({key})")
+            for name in NEVER.get(key, ()):
+                check(launches[key][name] == 0, f"kernel {name} was launched "
+                      f"{launches[key][name]} times by main path ({key})")
         check(rec.n_align_long.get("c", 0) > 0, "main path (c) launched "
               f"align_banded on no rows longer than {LONG_ROWS}")
         check_against_host("(a)", panel_data, recruited["a"],
@@ -1310,6 +1555,8 @@ def main():
                            rp)
         check_against_host("(c)", long_data, recruited["c"], long_iter(),
                            rp_long, ordered=False)
+        check(rec.n_align_long.get("e", 0) > 0, "main path (e) launched "
+              f"align_banded on no rows longer than {LONG_ROWS}")
 
         if want_profile:
             profile_main_path("(b) HLA-scale locus, traced",
@@ -1346,6 +1593,37 @@ def main():
           f"{EARLIER_MS['align_banded_long_rows']} ms; plain "
           f"{k4['plain_ms']:.0f} ms, "
           f"bound {k4['bound_ms']:.4f} ms by {k4['bound_by']})", flush=True)
+    # (e): K1 at band 160 and K5 on the widest launches of the 100 kb
+    # sample, at most 8 jobs or rows of each.
+    reads, lens, wins, svec, band = rec.widest[("e", "align")]
+    pick = longest_jobs(lens, BIG_READS[0])
+    check(band == 160 and pick.numel() > 0,
+          f"(e): widest launch at band {band}, {pick.numel()} jobs with reads "
+          f"longer than {BIG_READS[0]:,}")
+    n_rows = int(lens[pick].max())
+    k1e = compare_align(reads[pick], lens[pick], wins[pick], svec, band,
+                        "(e) widest launch")
+    whole_ms = time_ms(lambda: A.align_banded(reads, lens, wins, svec, band))
+    whole_bound, whole_by = align_bound_ms(reads, lens, wins, band)
+    print(f"(e) widest launch of align_banded {list(reads.shape)} [N, L], "
+          f"band {band}, longest read {int(lens.max()):,}: "
+          f"{whole_ms:.3f} ms (bound {whole_bound:.4f} ms by {whole_by}); "
+          f"{pick.numel()} of its jobs with reads of "
+          f"{int(lens[pick].min()):,} to {n_rows:,} bases: all 8 outputs "
+          f"bit-identical (largest n_clip {int(k1e['got']['n_clip'].max()):,},"
+          f" end {int(k1e['got']['end_p'].max()):,}), {k1e['ms']:.3f} ms "
+          f"(plain {k1e['plain_ms']:.0f} ms, bound {k1e['bound_ms']:.4f} ms "
+          f"by {k1e['bound_by']})", flush=True)
+    reads, k, w, S = rec.widest[("e", "full")]
+    check(reads.shape[1] > BIG_READS[0], "(e): widest full-width front-end "
+          f"launch at L = {reads.shape[1]}")
+    k5e = compare_front(reads[:8].contiguous(), k, w, S,
+                        "(e) widest full-width launch")
+    print(f"(e) widest launch of minimizer_front (full) "
+          f"{list(reads.shape)} [B, L]: its first {k5e['shape']['B']} rows, "
+          f"all outputs bit-identical; {k5e['ms']:.4f} ms (plain "
+          f"{k5e['plain_ms']:.0f} ms, bound {k5e['bound_ms']:.4f} ms by "
+          f"{k5e['bound_by']})", flush=True)
     check(set(rec.anneal) == {"anneal", "polish"},
           f"annealer modes on the main path: {sorted(rec.anneal)}")
     k2_modes = {}
@@ -1396,7 +1674,8 @@ def main():
                     **more)
 
     long_rows = entry("align_banded", ["align_banded"], "align_banded.cu",
-                      "locityper_tpu/ops/align_pallas.py:301", k4)
+                      "locityper_tpu/ops/align_pallas.py:301", k4,
+                      rows_over_65536=numbers(k1e))
     long_rows["launches_by_path"] = {key: rec.n_align_long.get(key, 0)
                                      for key in launches}
     long_rows["launches"] = sum(long_rows["launches_by_path"].values())
@@ -1419,7 +1698,8 @@ def main():
                                    k3["compact"]),
                   "full": entry(FRONT[1], FRONT[1:], "minimizer_front.cu",
                                 "locityper_tpu/ops/recruit.py:316",
-                                k3["full"])})]}), flush=True)
+                                k3["full"], rows_of_131072=numbers(k5e))})]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -81,7 +81,10 @@ def add_args(p):
                    help="Subset of loci to genotype (default: all)")
     p.add_argument("--interleaved", action="store_true")
     p.add_argument("-S", "--solvers", nargs="*", default=None,
-                   help='Solver stages, e.g. "greedy:i=5k,a=1" "anneal:i=20,a=20"')
+                   help='Solver stages, e.g. "greedy:i=5k,a=1" "anneal:i=20,a=20"; '
+                        'engine e=auto (= chains, pallas: the parallel-chains '
+                        'annealer) or e=seq (the sequential engine, the '
+                        'reference greedy)')
     p.add_argument("-P", "--ploidy", type=int, default=2)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--subsample", type=float, default=None,

@@ -7,9 +7,10 @@ final ranking with pairwise probabilities, Phred quality and weighted
 genotype distances (:472-767).
 
 Work placement differs from the reference by design: each stage launches
-one annealer call per genotype chunk, evaluating (genotypes × attempts)
-chains in parallel (ops/solver_chains.py), instead of sharding genotypes
-over CPU threads.
+one solver call per genotype chunk, evaluating (genotypes × attempts)
+chains in parallel — the parallel-chains annealer (ops/solver_chains.py) or
+the sequential engine (ops/solver.py, `e=seq`), both vectorised over the
+chains of a call — instead of sharding genotypes over CPU threads.
 """
 from __future__ import annotations
 
@@ -24,8 +25,9 @@ from .. import _kernels, mathx
 from ..model import Params
 from ..model.assgn import LocusTensors
 from ..model.windows import ContigInfoPack
+from ..ops import solver as seq_solver
+from ..ops import solver_chains
 from ..ops.solver import NEG, SolverConfig, build_bayes_table
-from ..ops.solver_chains import solve_genotypes
 from ..utils.logging import get_logger
 from ..utils.rng import derive_seed
 
@@ -50,11 +52,17 @@ def _parse_size(s: str) -> int:
 class Stage:
     """One solver stage (solve.rs:138-203): SOLVER[:param=value,...].
 
-    engine "auto" (default, also spelled "chains") is the parallel-chains
-    annealer of ops/solver_chains.py: the hand-written CUDA kernel on a
-    CUDA device, its plain PyTorch version on the CPU.  The reference
-    package's "seq" (one sequential chain, reference-greedy semantics) and
-    "batched" engines are not part of this package yet and raise.
+    Engines (`e=`): "auto" (default; also spelled "chains", or "pallas",
+    the reference package's name for the kernel it replaces) is the
+    parallel-chains annealer of ops/solver_chains.py — the hand-written
+    CUDA kernel on a CUDA device, its plain PyTorch version on the CPU —
+    on either device (the reference sends "auto" to "seq" on the CPU).
+    "seq" is the sequential engine of ops/solver.py with the reference's
+    semantics: one Metropolis chain for anneal stages, the reference greedy
+    (`s=` reads sampled per iteration, stop after a plateau of `p=`
+    iterations) for greedy stages; plain PyTorch on either device.  The
+    reference package's "batched" engine is not part of this package and
+    raises.
     """
     kind: str                    # "greedy" | "anneal"
     in_size: int = 1000
@@ -62,13 +70,14 @@ class Stage:
     anneal_steps: int = 20000
     polish_steps: int = 10000
     engine: str = "auto"
-    # Reference-greedy knobs (stoch.rs:36-145); the chains annealer runs a
-    # polish walk whose plateau is derived from them (_stage_plato).
+    # Reference-greedy knobs (stoch.rs:36-145): the seq engine implements
+    # them exactly; the chains annealer runs a polish walk whose plateau is
+    # derived from them (_stage_plato).
     sample: int = 10
     plato: int = 100
     # init=prev: seed every chain from the previous stage's best
-    # assignment instead of random init (an optimization beyond the
-    # reference — off by default).
+    # assignment instead of random init (chains engine; an optimization
+    # beyond the reference — off by default).
     seed_prev: bool = False
 
     @classmethod
@@ -342,21 +351,20 @@ def _candidate_k_cap(tensors, ploidy: int) -> int | None:
     return k_eff if k_eff < k_full else None
 
 
-def _resolve_engine(stage: Stage, mesh) -> None:
-    """Only the parallel-chains annealer exists in this package."""
+def _resolve_engine(stage: Stage, mesh) -> str:
+    """The engine that runs `stage`: "seq" or "chains"."""
     if mesh is not None:
         raise NotImplementedError(
             "multi-GPU solving (mesh) is not ported yet — ROADMAP.md A12")
     if stage.engine == "seq":
-        raise NotImplementedError(
-            "solver engine 'seq' (ops/solver.py sequential chain) is not "
-            "ported yet — ROADMAP.md A10")
+        return "seq"
+    if stage.engine in ("auto", "chains", "pallas"):
+        return "chains"
     if stage.engine == "batched":
         raise NotImplementedError(
             "solver engine 'batched' is not part of this package — "
             "ROADMAP.md 'Do not port'")
-    if stage.engine not in ("auto", "chains"):
-        raise ValueError(f"Unknown solver engine {stage.engine!r}")
+    raise ValueError(f"Unknown solver engine {stage.engine!r}")
 
 
 def _device_solver_args(tensors, pack, bayes, device):
@@ -381,7 +389,7 @@ def solve_locus(tensors: LocusTensors, pack: ContigInfoPack, bg_distr,
 
     sol_writer: optional text stream receiving per-stage scores
     ("stage\\tgenotype\\tscore", counterpart of sol.csv.gz, solve.rs:918-919).
-    device: None = CUDA (raises without one); "cpu" = the plain annealer.
+    device: None = CUDA (raises without one); "cpu" = the CPU.
     """
     item = PanelItem(tensors=tensors, pack=pack, genotypes=genotypes,
                      priors=priors, tag=tag, dist_matrix=dist_matrix,
@@ -469,7 +477,7 @@ def solve_panel(items: list, bg_distr, params: Params, scheme: Scheme,
 
     seed: integer; every stage chunk derives its own generator seed from
     (seed, stage, chunk start).  device: None = CUDA (raises without one);
-    "cpu" = the plain annealer.  Returns list[Genotyping] in `items` order.
+    "cpu" = the CPU.  Returns list[Genotyping] in `items` order.
     """
     sizes = [it.pack.window_size for it in items]
     if len(set(sizes)) > 1:
@@ -492,8 +500,7 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
                        seed: int, gt_batch: int, mesh, device) -> list:
     """One combined multi-stage program over loci sharing a window size
     (`solve_panel` body; see its docstring)."""
-    for stage in scheme.stages:
-        _resolve_engine(stage, mesh)
+    engines = [_resolve_engine(stage, mesh) for stage in scheme.stages]
     dev = _kernels.resolve_device(device)
     n_loci = len(items)
     t_c0 = time.monotonic()
@@ -539,6 +546,8 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
             logger.info("    Skipping stage %d for all loci", s_ix + 1)
             continue
         t0 = time.monotonic()
+        engine = engines[s_ix]
+        random_init = stage.kind == "anneal"
         cfg = SolverConfig(
             anneal_steps=stage.anneal_steps,
             polish_steps=stage.polish_steps,
@@ -547,11 +556,16 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
             prob_diff=params.prob_diff,
             tweak=int(params.tweak or 0),
             window_size=pack.window_size,
+            greedy_sample=(stage.sample
+                           if stage.kind == "greedy" and engine == "seq"
+                           else 0),
+            plato_size=stage.plato,
         )
         final_stage = out_size is None
-        # init=prev seeding: the NEXT stage wants this stage's best
-        # assignments (permuted slot space) as warm starts.
-        next_seed = not final_stage and scheme.stages[s_ix + 1].seed_prev
+        # init=prev seeding (chains engine): the NEXT stage wants this
+        # stage's best assignments (permuted slot space) as warm starts.
+        next_seed = (not final_stage and engine == "chains"
+                     and scheme.stages[s_ix + 1].seed_prev)
 
         # Combined genotype list over the active loci.
         rows = []                # (locus, local gt ix)
@@ -570,16 +584,26 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
         for st, take in _gt_chunks(all_gts.shape[0], gt_batch):
             chunk_rows = rows[st:st + take]
             gts = all_gts[st:st + take]
-            init_ = None
-            if stage.seed_prev and all(k in seed_rows for k in chunk_rows):
-                init_ = np.stack([seed_rows[k] for k in chunk_rows])
-                init_ = np.repeat(init_[:, None, :], stage.attempts, 1)
-            liks, assgns = solve_genotypes(
-                derive_seed(seed, s_ix * 100003 + st), gts, *dev_args, cfg,
-                n_attempts=stage.attempts, max_windows=pack.max_windows,
-                n_steps=cfg.anneal_steps + cfg.polish_steps,
-                random_init=stage.kind == "anneal", k_eff=k_cap,
-                plato=_stage_plato(stage), init_assgn=init_, device=dev)
+            stage_seed = derive_seed(seed, s_ix * 100003 + st)
+            if engine == "seq":
+                # The reference's seq branch: no k_eff, no plateau polish,
+                # no warm start (solvers/solve.py:765-806).
+                liks, assgns = seq_solver.solve_genotypes(
+                    stage_seed, gts, *dev_args, cfg,
+                    n_attempts=stage.attempts, max_windows=pack.max_windows,
+                    random_init=random_init, device=dev)
+            else:
+                init_ = None
+                if stage.seed_prev and all(k in seed_rows
+                                           for k in chunk_rows):
+                    init_ = np.stack([seed_rows[k] for k in chunk_rows])
+                    init_ = np.repeat(init_[:, None, :], stage.attempts, 1)
+                liks, assgns = solver_chains.solve_genotypes(
+                    stage_seed, gts, *dev_args, cfg,
+                    n_attempts=stage.attempts, max_windows=pack.max_windows,
+                    n_steps=cfg.anneal_steps + cfg.polish_steps,
+                    random_init=random_init, k_eff=k_cap,
+                    plato=_stage_plato(stage), init_assgn=init_, device=dev)
             pend.append((chunk_rows, gts, liks,
                          assgns if final_stage or next_seed else None))
         seed_rows = {}
@@ -594,9 +618,10 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
                     best_a = np.argmax(liks, axis=1)
                     for gi, k in enumerate(chunk_rows):
                         seed_rows[k] = assgns[gi, best_a[gi]]
-                if final_stage:
+                if final_stage and engine == "chains":
                     # The annealer's assignments live in the valid-first
-                    # permuted slot space; map back to candidate slots.
+                    # permuted slot space; map back to candidate slots (the
+                    # seq engine returns candidate slots).
                     assgns = _unpermute_assignments(assgns, gts, tensors,
                                                     params)
             for gi, (li, ix) in enumerate(chunk_rows):

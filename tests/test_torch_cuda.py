@@ -199,3 +199,79 @@ def test_minimizer_front_kernel_equals_plain_version(card, B, L, k, w):
             want = TR.minimizer_front_reference(reads, k2, w2, S)
             for a, b in zip(got, want):
                 assert torch.equal(a, b), (k2, w2, S)
+
+
+def ilp_problem(seed, n_reads=40, n_haps=3, kh=3):
+    """tests/test_ilp.py:small_problem, built with the port's own classes
+    (the card's machine has no JAX): small enough for the exact ILP
+    oracle, tweak = 0."""
+    from locityper_tpu_torch.mathx.distr import NBinom
+    from locityper_tpu_torch.model import Params
+    from locityper_tpu_torch.model.assgn import LocusTensors
+    from locityper_tpu_torch.model.windows import ContigInfoPack
+    from locityper_tpu_torch.ops.solver import build_bayes_table
+    rng = np.random.default_rng(seed)
+    hap_len, window, n_win = 1500, 100, 8
+    hap_prob = rng.normal(-4.0, 2.0, (n_haps, n_reads, kh)).astype(np.float32)
+    hap_prob[rng.random((n_haps, n_reads, kh)) < 0.35] = -1e30
+    mid = rng.integers(0, hap_len, (n_haps, n_reads, kh, 2)).astype(np.int32)
+    mid[rng.random((n_haps, n_reads, kh, 2)) < 0.15] = -1
+    tensors = LocusTensors(hap_prob, mid, np.full(n_reads, -30.0, np.float32),
+                           n_haps, n_reads, kh)
+    pack = ContigInfoPack(
+        n_haps=n_haps, max_len=hap_len, max_windows=32,
+        n_windows=np.full(n_haps, n_win, np.int32),
+        reg_start=np.full(n_haps, (hap_len - n_win * window) // 2, np.int32),
+        contig_len=np.full(n_haps, hap_len, np.int32), window_size=window,
+        gc_at=rng.integers(35, 60, (n_haps, hap_len)).astype(np.int32),
+        weight_at=rng.uniform(0.6, 1.0, (n_haps, hap_len)).astype(np.float32))
+    bayes = build_bayes_table([NBinom(4.0, 0.45)] * 101, [0.3, 2.0, 3.0], 2.0)
+    return tensors, pack, bayes, Params(tweak=0)
+
+
+def run_seq(device, seed, gts, problem, attempts, random_init, **cfg):
+    from locityper_tpu_torch.ops import solver as TS
+    tensors, pack, bayes, params = problem
+    config = TS.SolverConfig(
+        depth_contrib=params.depth_contrib, aln_contrib=params.aln_contrib,
+        prob_diff=params.prob_diff, tweak=0, window_size=pack.window_size,
+        **cfg)
+    liks, assgn = TS.solve_genotypes(
+        seed, np.asarray(gts), tensors.hap_prob, tensors.hap_mid,
+        tensors.unmapped_prob, pack.n_windows, pack.reg_start,
+        pack.contig_len, pack.gc_at, pack.weight_at, bayes, config,
+        n_attempts=attempts, max_windows=pack.max_windows,
+        random_init=random_init, device=device)
+    return liks.cpu().numpy(), assgn.cpu().numpy()
+
+
+ALL_GTS = [(a, b) for a in range(3) for b in range(a, 3)]
+
+
+@pytest.mark.parametrize("random_init", [False, True])
+def test_seq_greedy_chain_equal_on_card_and_cpu(card, random_init):
+    """The sequential engine's greedy: its decisions are float32 adds and
+    multiplies of gathered values and its draws are counted, so the card
+    and the CPU walk the same way: equal assignments, likelihoods within
+    1e-4."""
+    problem = ilp_problem(1)
+    kw = dict(greedy_sample=10, plato_size=100)
+    a = run_seq(card, 3, ALL_GTS, problem, 8, random_init, **kw)
+    b = run_seq("cpu", 3, ALL_GTS, problem, 8, random_init, **kw)
+    np.testing.assert_array_equal(a[1], b[1])
+    np.testing.assert_allclose(a[0], b[0], rtol=0, atol=1e-4)
+
+
+def test_seq_chain_reaches_ilp_optimum_on_card(card):
+    """The sequential engine's annealing chain on the card
+    (tests/test_ilp.py:57, best of 64 attempts, as tests/test_torch_seq.py
+    asks of it on the CPU)."""
+    from locityper_tpu_torch.solvers import ilp
+    for seed in (0, 1, 2):
+        problem = ilp_problem(seed)
+        tensors, pack, bayes, params = problem
+        _, ilp_lik = ilp.solve_ilp((0, 2), tensors, pack, bayes, params)
+        liks, _ = run_seq(card, seed, [(0, 2)], problem, 64, True,
+                          anneal_steps=4000, polish_steps=4000)
+        assert float(liks.max()) == pytest.approx(ilp_lik, abs=1e-3)
+        assert float(liks.max()) <= ilp_lik + 1e-3

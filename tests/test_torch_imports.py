@@ -2,8 +2,8 @@
 
 A subprocess poisons `sys.modules["jax"]` and `sys.modules["locityper_tpu"]`,
 imports every module of `locityper_tpu_torch` and genotypes a tiny locus on
-`device="cpu"`, from two FASTQ files through the device recruiter, writing
-the called genotype's SAM file; another
+`device="cpu"`, from two FASTQ files through the device recruiter, under the
+sequential engine (`e=seq`), writing the called genotype's SAM file; another
 runs `python -m locityper_tpu_torch.cli --help` poisoned the same way; the
 sources of the package, of `chip_smoke.py` and of `time_minimizer_front.py`
 are also searched for such imports.
@@ -109,8 +109,8 @@ with tempfile.TemporaryDirectory() as sam_dir:
         [dict(locus=data["T0"], read_pairs=rec["T0"][0], names=rec["T0"][1],
               tag="T0", prebuilt=built[0], sam_dir=sam_dir)], bg,
         params=params,
-        scheme=Scheme.parse(["greedy:i=5k,a=1,p=30",
-                             "anneal:i=3,a=3,n=300,p=150"]),
+        scheme=Scheme.parse(["greedy:i=5k,a=1,p=30,e=seq",
+                             "anneal:i=3,a=3,n=300,p=150,e=seq"]),
         seed=2, device="cpu")
     import gzip, os
     with gzip.open(os.path.join(sam_dir, "00.sam.gz"), "rt") as f:

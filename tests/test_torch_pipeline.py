@@ -161,8 +161,7 @@ def test_genotype_locus_and_unported_options(solved):
         prebuilt_alns=e["prebuilt"], device="cpu")
     assert tuple(sorted(res.genotypes[0])) == TRUTH[1]
     assert stats == e["prebuilt"][1]
-    for spec, exc in (("anneal:e=seq", NotImplementedError),
-                      ("anneal:e=batched", NotImplementedError),
+    for spec, exc in (("anneal:e=batched", NotImplementedError),
                       ("anneal:e=nope", ValueError)):
         with pytest.raises(exc):
             genotype_locus(e["locus"], e["read_pairs"], e["names"], bg,
