@@ -48,10 +48,31 @@ reference-default scheme) on simulated samples whose truth is known:
        `recruit_reads` (full-width front end at rows of 131,072), aligned at
        band 160 on rows longer than 65,536, default scheme.
 
+  (a-mesh) the files of (a') through `genotype` with
+       `parallel.mesh.auto_mesh` returning a 2 x 2 grid of 4 shards on card
+       0 (restored afterwards): recruitment, alignment and both solver
+       stages split over the shards; the recruited reads must equal (a')'s
+       name by name and every call (a')'s.  Where `auto_mesh()` itself
+       gives a grid (2, 4, ... cards), (a-mesh) runs once more over it.
+  (a-batched) the files of (a') through `genotype -S
+       greedy:i=5k,a=1,e=batched anneal:i=20,a=20,e=batched` (the
+       batched-move engine, plain PyTorch): every call must equal (a')'s,
+       and the annealer kernel must not be launched;
+  (b-mesh) (b) at full width over the grid of (a-mesh); afterwards
+       `sharded_align` on all its alignment jobs must equal one device on
+       every output, the read-sharded stage-0 scores of its 20,100
+       genotypes lie within 1e-5 relative of the host's and keep the same
+       genotypes, each shard of its first stage chunk equal one launch of
+       the annealer on that shard's rows with that shard's seed, and
+       `parallel.mesh.full_step` (the multi-device dry run) equal one
+       device.
+
 Before the samples, the sequential engine runs on the card against the CPU
 on tests/test_ilp.py's problems: its greedy must give equal assignments and
 likelihoods within 1e-4 on both, and its annealing chain must reach the ILP
-optimum on the card.
+optimum on the card; the batched-move engine must reach within 0.05 of the
+optimum on the card and on the CPU.  The card count
+(`torch.cuda.device_count()`) is printed after the card's name.
 
 Every call must equal the simulated truth.  The launch counts are set to 0
 just before each sample and read just after it, and each kernel must have
@@ -138,13 +159,16 @@ from locityper_tpu_torch.commands import genotype as G
 from locityper_tpu_torch.mathx.distr import NBinom
 from locityper_tpu_torch.model import Params
 from locityper_tpu_torch.model.assgn import LocusTensors
+from locityper_tpu_torch.model import locs as LC
 from locityper_tpu_torch.model.locs import build_all_alignments_panel
 from locityper_tpu_torch.model.windows import ContigInfoPack
 from locityper_tpu_torch.ops import align as A
 from locityper_tpu_torch.ops import recruit as R
 from locityper_tpu_torch.ops import solver as SQ
+from locityper_tpu_torch.ops import solver_batched as SB
 from locityper_tpu_torch.ops import solver_chains as SC
 from locityper_tpu_torch.ops.solver import SolverConfig, build_bayes_table
+from locityper_tpu_torch.parallel import mesh as M
 from locityper_tpu_torch.pipeline import LocusData, genotype_panel
 from locityper_tpu_torch.pipeline import recruit_reads as host_recruit_reads
 from locityper_tpu_torch.seq import bam as tbam
@@ -153,8 +177,10 @@ from locityper_tpu_torch.seq.contigs import ContigSet
 from locityper_tpu_torch.seq.counts import GenomeKmerCounter, off_target_counts
 from locityper_tpu_torch.seq.recruit import RecruitParams
 from locityper_tpu_torch.solvers import ilp
-from locityper_tpu_torch.solvers.solve import Scheme, _unpermute_assignments
+from locityper_tpu_torch.solvers.solve import (Scheme, _unpermute_assignments,
+                                               run_filter, select_by_scores)
 from locityper_tpu_torch.utils import paths
+from locityper_tpu_torch.utils.rng import derive_seed
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -176,6 +202,8 @@ WGS_LOCUS_GAP = 400_000         # its central 4.5 Mb; loci every 400 kb
 WGS_DEPTH = 7.5                 # (d): depth of each of the two copies
 WGS_SUB_RATE = 0.002            # (d): substitutions a base
 SEQ_SCHEME = ["greedy:i=5k,a=1,e=seq", "anneal:i=20,a=20,e=seq"]
+BATCHED_SCHEME = ["greedy:i=5k,a=1,e=batched", "anneal:i=20,a=20,e=batched"]
+GRID = 4                        # (a-mesh), (b-mesh): 2 x 2 shards on one card
 BIG_LOCUS = 98_304              # (e): extra/validate_stream_100k.py
 BIG_READS = (65_536, 98_304)    # (e): longer than the first, at most the second
 
@@ -581,6 +609,48 @@ def phase_seq():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
+def phase_batched():
+    """The batched-move engine (`e=batched`, plain PyTorch, no kernel of its
+    own) on the card and on the CPU: tests/test_ilp.py:78's bar on
+    small_problem, the best of 8 attempts of 1,000 super-steps (500 of
+    cooling, a third of the accepted moves kept) within 0.05 of the exact
+    ILP optimum."""
+    gaps = {}
+    t0 = time.perf_counter()
+    for device in ("cuda", "cpu"):
+        for seed in (0, 1, 2):
+            tensors, pack, bayes, params = small_problem(seed)
+            gt = (0, 2)
+            _, ilp_lik = ilp.solve_ilp(gt, tensors, pack, bayes, params)
+            cfg = SolverConfig(
+                anneal_steps=0, polish_steps=0,
+                depth_contrib=params.depth_contrib,
+                aln_contrib=params.aln_contrib, prob_diff=params.prob_diff,
+                tweak=0, window_size=pack.window_size, anneal_steps_b=500,
+                move_thin=0.3)
+            liks, _ = SB.solve_genotypes(
+                seed, np.array([gt]), tensors.hap_prob, tensors.hap_mid,
+                tensors.unmapped_prob, pack.n_windows, pack.reg_start,
+                pack.contig_len, pack.gc_at, pack.weight_at, bayes, cfg,
+                n_attempts=8, max_windows=pack.max_windows, n_steps=1000,
+                device=device)
+            check(liks.device.type == device, f"batched engine ran on "
+                  f"{liks.device}, asked {device}")
+            best = float(liks.max())
+            check(abs(best - ilp_lik) <= 0.05 and best <= ilp_lik + 0.05,
+                  f"batched engine ({device}) best {best} != ILP optimum "
+                  f"{ilp_lik} on problem {seed}")
+            gaps[(device, seed)] = ilp_lik - best
+        if device == "cuda":
+            sync()
+            t_card = time.perf_counter() - t0
+    print(f"batched engine, 8 attempts x 1,000 super-steps: best within 0.05 "
+          f"of the ILP optimum of problems 0-2 on the card (gaps "
+          f"{[round(gaps[('cuda', s)], 6) for s in range(3)]}) and on the CPU "
+          f"({[round(gaps[('cpu', s)], 6) for s in range(3)]}); "
+          f"{t_card:.2f} s on the card", flush=True)
+
+
 # -- K3 / K5 -----------------------------------------------------------------
 
 def make_reads(seed, B, L, n_frac=0.001):
@@ -755,9 +825,12 @@ def write_fastq_pair(tmp, names, reads1, reads2):
     return fq1, fq2
 
 
-def run_main_path(what, loci, data, n_reads, recruit, bg, band, seed):
-    """recruit -> align -> solve, all on the GPU, default scheme.
-    `recruit()` returns {locus: (read_pairs, names)}; returns the same."""
+def run_main_path(what, loci, data, n_reads, recruit, bg, band, seed,
+                  mesh=None, keep=None):
+    """recruit -> align -> solve, all on the GPU, default scheme; alignment
+    and solving split over `mesh`'s shards when one is given.  `recruit()`
+    returns {locus: (read_pairs, names)}; returns the same.  `keep`, a
+    dict, receives the alignments ("built")."""
     tech = bg.seq_info.technology
     params = Params(unmapped_penalty=tech.default_unmapped_penalty())
     params.set_tweak_size(bg.depth.window_size)
@@ -770,14 +843,16 @@ def run_main_path(what, loci, data, n_reads, recruit, bg, band, seed):
     t1 = time.perf_counter()
     panel = [(rec[lc.name][0], rec[lc.name][1], data[lc.name].contig_set,
               data[lc.name].kmer_counts) for lc in loci]
-    built = build_all_alignments_panel(panel, bg, cache, params)
+    built = build_all_alignments_panel(panel, bg, cache, params, mesh=mesh)
+    if keep is not None:
+        keep["built"] = built
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     entries = [dict(locus=data[lc.name], read_pairs=rec[lc.name][0],
                     names=rec[lc.name][1], tag=lc.name, prebuilt=built[i])
                for i, lc in enumerate(loci)]
     solved = genotype_panel(entries, bg, params=params,
-                            scheme=Scheme.default(), seed=seed)
+                            scheme=Scheme.default(), seed=seed, mesh=mesh)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     n_exact = 0
@@ -956,39 +1031,252 @@ def run_cli_path(what, tmp, loci, genome, fq1, fq2, device_args=()):
           f"{dict(_kernels.LAUNCHES)}", flush=True)
 
 
+def run_genotype_cli(what, tmp, loci, fq1, fq2, out_name, extra=(),
+                     device_args=()):
+    """`genotype` on (a')'s files, database and background into
+    `out_name`; every call must equal the truth and (a')'s call.  Returns
+    the seconds and the captured log."""
+    db, prep, out = tmp / "db", tmp / "sample", tmp / out_name
+    with LogLines() as log:
+        t0 = time.perf_counter()
+        rc = cli.main([*device_args, "genotype", "-i", str(fq1), str(fq2),
+                       "-d", str(db),
+                       "-p", str(prep), "-o", str(out), "--seed", "1",
+                       *extra])
+        sync()
+        secs = time.perf_counter() - t0
+    check(rc == 0, f"{what}: genotype returned {rc}")
+    results = check_calls(what, out, loci)
+    chains = check_calls(f"{what}, (a')", tmp / "out", loci)
+    for lc in loci:
+        check(sorted(results[lc.name]["genotype"].split(","))
+              == sorted(chains[lc.name]["genotype"].split(",")),
+              f"{what} {lc.name}: called {results[lc.name]['genotype']}, "
+              f"(a') {chains[lc.name]['genotype']}")
+    return secs, log
+
+
+def stage_seconds(log):
+    """The seconds of solver stages 1 and 2 from a `genotype` log."""
+    return [log.find(rf"Stage {i} \((?:greedy|anneal)\):.* in ([\d.]+)s")
+            for i in (1, 2)]
+
+
 def run_seq_cli(what, tmp, loci, fq1, fq2, greedy_iters, device_args=()):
     """(a-seq): (a')'s files, database and background through `genotype`
     under the sequential engine; every call must equal the truth and the
     chains engine's call in (a')'s res.json.gz.  `greedy_iters` receives
     the iterations of every greedy chain."""
-    db, prep, out = tmp / "db", tmp / "sample", tmp / "out_seq"
-    with LogLines() as log:
-        t0 = time.perf_counter()
-        rc = cli.main([*device_args, "genotype", "-i", str(fq1), str(fq2),
-                       "-d", str(db), "-p", str(prep), "-o", str(out),
-                       "--seed", "1", "-S", *SEQ_SCHEME])
-        sync()
-        t1 = time.perf_counter()
-    check(rc == 0, f"{what}: genotype returned {rc}")
-    results = check_calls(what, out, loci)
-    chains = check_calls(f"{what}, chains engine", tmp / "out", loci)
-    for lc in loci:
-        check(sorted(results[lc.name]["genotype"].split(","))
-              == sorted(chains[lc.name]["genotype"].split(",")),
-              f"{what} {lc.name}: seq called {results[lc.name]['genotype']}, "
-              f"chains {chains[lc.name]['genotype']}")
-    stages = [log.find(rf"Stage {i} \((?:greedy|anneal)\):.* in ([\d.]+)s")
-              for i in (1, 2)]
+    secs, log = run_genotype_cli(what, tmp, loci, fq1, fq2, "out_seq",
+                                 ["-S", *SEQ_SCHEME], device_args)
+    stages = stage_seconds(log)
     check(all(stages), f"{what}: no stage times in the log")
     check(greedy_iters, f"{what}: no greedy chain ran")
     iters = torch.cat([t.cpu() for t in greedy_iters]).double()
     print(f"main path {what}: genotype (FASTQ to res.json.gz) "
-          f"{t1 - t0:.2f} s, solve stage 1 (greedy) {stages[0]} s, stage 2 "
+          f"{secs:.2f} s, solve stage 1 (greedy) {stages[0]} s, stage 2 "
           f"(anneal) {stages[1]} s; greedy iterations to plateau mean "
           f"{float(iters.mean()):.1f}, max {int(iters.max())} over "
           f"{iters.numel()} chains; {len(loci)}/{len(loci)} res.json.gz name "
           f"the truth and equal the chains engine's calls; launches "
           f"{dict(_kernels.LAUNCHES)}", flush=True)
+
+
+def run_mesh_cli(what, tmp, loci, fq1, fq2, grid, recruited, out_name,
+                 device_args=()):
+    """(a-mesh): (a')'s files through `genotype` with
+    `parallel.mesh.auto_mesh` returning `grid` (the monkeypatch of the
+    reference's tests/test_readwidth.py:147; restored afterwards), or the
+    real `auto_mesh()` when `grid` is None.  Recruitment, alignment and
+    solving are split over the grid's shards; the recruited reads must equal
+    (a')'s name by name, every call the truth and (a')'s call."""
+    real = M.auto_mesh
+    used = []
+
+    def patched():
+        used.append(grid if grid is not None else real())
+        return used[-1]
+
+    M.auto_mesh = patched
+    try:
+        secs, log = run_genotype_cli(what, tmp, loci, fq1, fq2, out_name,
+                                     device_args=device_args)
+    finally:
+        M.auto_mesh = real
+    mesh = used[0] if used else None
+    check(mesh is not None, f"{what}: no grid (auto_mesh gave {used})")
+    n = log.find(r"Recruitment sharded over (\d+) devices")
+    check(n == str(mesh.devices.size), f"{what}: recruitment sharded over "
+          f"{n} devices, grid of {mesh.devices.size}")
+    for lc in loci:
+        got, want = recruited[out_name][lc.name], recruited["out"][lc.name]
+        check(got == want, f"{what} {lc.name}: {len(got)} reads recruited, "
+              f"(a') {len(want)}; {len(set(got) ^ set(want))} names differ")
+    stages = stage_seconds(log)
+    print(f"main path {what}: grid {mesh}; genotype (FASTQ to res.json.gz) "
+          f"{secs:.2f} s, solve stages {stages[0]} / {stages[1]} s; "
+          f"recruited reads equal (a')'s name by name "
+          f"({sum(len(v) for v in recruited[out_name].values())}); "
+          f"{len(loci)}/{len(loci)} res.json.gz name the truth and equal "
+          f"(a')'s calls; launches {dict(_kernels.LAUNCHES)}", flush=True)
+
+
+def run_batched_cli(what, tmp, loci, fq1, fq2, device_args=()):
+    """(a-batched): (a')'s files through `genotype -S ...,e=batched`: the
+    batched-move engine (plain PyTorch on the card, no kernel of its own);
+    every call must equal the truth and (a')'s call."""
+    secs, log = run_genotype_cli(what, tmp, loci, fq1, fq2, "out_batched",
+                                 ["-S", *BATCHED_SCHEME], device_args)
+    stages = stage_seconds(log)
+    check(all(stages), f"{what}: no stage times in the log")
+    print(f"main path {what}: genotype (FASTQ to res.json.gz) {secs:.2f} s, "
+          f"solve stage 1 (greedy, 400 super-steps) {stages[0]} s, stage 2 "
+          f"(anneal, 1,000 super-steps) {stages[1]} s; {len(loci)}/"
+          f"{len(loci)} res.json.gz name the truth and equal (a')'s calls; "
+          f"launches {dict(_kernels.LAUNCHES)}", flush=True)
+
+
+class MeshCapture:
+    """While in use, keeps what (b-mesh) hands the grid: the job arrays of
+    every alignment dispatch and the first genotype-sharded stage chunk
+    (its runner, seed, genotypes and outputs), for `check_b_mesh`."""
+
+    def __enter__(self):
+        self.jobs, self.chunk = [], None
+        self._dispatch = LC.dispatch_align_batches
+        self._stage = M.sharded_stage_solver
+
+        def dispatch(*args, **kw):
+            self.jobs.append(args[:5])
+            return self._dispatch(*args, **kw)
+
+        def stage(mesh, run_solver, seed, gts):
+            out = self._stage(mesh, run_solver, seed, gts)
+            if self.chunk is None:
+                self.chunk = (run_solver, seed, np.asarray(gts), out)
+            return out
+
+        LC.dispatch_align_batches, M.sharded_stage_solver = dispatch, stage
+        return self
+
+    def __exit__(self, *exc):
+        LC.dispatch_align_batches = self._dispatch
+        M.sharded_stage_solver = self._stage
+
+
+def synthetic_problem(n_reads, n_haps=4, hap_len=2000, kh=4, seed=0):
+    """`__graft_entry__._synthetic_problem` with the port's classes: random
+    locus tensors, all genotypes, 50 + 50 steps."""
+    rng = np.random.default_rng(seed)
+    hap_prob = rng.normal(-3.0, 2.0, (n_haps, n_reads, kh)).astype(np.float32)
+    hap_prob[rng.random((n_haps, n_reads, kh)) < 0.4] = -1e30
+    hap_mid = rng.integers(0, hap_len, (n_haps, n_reads, kh, 2)) \
+        .astype(np.int32)
+    hap_mid[rng.random((n_haps, n_reads, kh, 2)) < 0.1] = -1
+    window, boundary = 100, 200
+    n_win = (hap_len - 2 * boundary) // window
+    tensors = LocusTensors(hap_prob, hap_mid,
+                           np.full(n_reads, -40.0, np.float32), n_haps,
+                           n_reads, kh)
+    pack = ContigInfoPack(
+        n_haps=n_haps, max_len=hap_len, max_windows=n_win,
+        n_windows=np.full(n_haps, n_win, np.int32),
+        reg_start=np.full(n_haps, (hap_len - n_win * window) // 2, np.int32),
+        contig_len=np.full(n_haps, hap_len, np.int32), window_size=window,
+        gc_at=rng.integers(30, 70, (n_haps, hap_len)).astype(np.int32),
+        weight_at=rng.uniform(0.5, 1.0, (n_haps, hap_len)).astype(np.float32))
+    bayes = build_bayes_table([NBinom(3.0, 0.4)] * 101, [0.3, 2.0, 3.0], 2.0)
+    gts = np.array([(a, b) for a in range(n_haps) for b in range(a, n_haps)],
+                   np.int32)
+    cfg = SolverConfig(anneal_steps=50, polish_steps=50, tweak=50,
+                       window_size=window)
+    return tensors, pack, bayes, gts, cfg
+
+
+def check_b_mesh(what, grid, cap, built, device="cuda"):
+    """(b-mesh)'s comparisons, after its launches were counted:
+    `sharded_align` on its whole job set equals the one-device
+    `dispatch_align_batches` to the bit; the read-sharded stage-0 scores are
+    within a relative 1e-5 of the host's and select the same genotypes;
+    each shard of the first stage chunk equals one call of the annealer on
+    that shard's rows with that shard's seed, to the bit.  Then
+    `parallel.mesh.full_step` (the multi-device dry run) on the grid."""
+    t0 = time.perf_counter()
+    check(cap.jobs, f"{what}: no alignment dispatch")
+    n_jobs = 0
+    for reads, lens, wins, sv, band in cap.jobs:
+        got = M.sharded_align(grid, reads, lens, wins, sv, band)
+        want = LC.collect_align_batches(LC.dispatch_align_batches(
+            reads, lens, wins, sv, band, device=device))
+        for k in want:
+            check(np.array_equal(got[k], want[k]),
+                  f"{what}: sharded_align {k} differs from one device")
+        n_jobs += reads.shape[0]
+    t1 = time.perf_counter()
+
+    all_alns = built[0][0]
+    tensors = LocusTensors.build(all_alns)
+    n_haps = tensors.n_haps
+    gts = np.array([(a, b) for a in range(n_haps) for b in range(a, n_haps)],
+                   np.int32)
+    priors = np.zeros(gts.shape[0])
+    n_real = tensors.n_reads
+    best_aln = np.maximum(tensors.hap_prob[:, :n_real].max(axis=2),
+                          tensors.unmapped_prob[None, :n_real])
+    gt_best = np.maximum(best_aln[gts[:, 0]], best_aln[gts[:, 1]])
+    host = priors + gt_best.sum(axis=1)
+    pad_r = (-n_real) % grid.shape["read"]
+    sharded = M.sharded_filter_scores(
+        grid, np.pad(best_aln, ((0, 0), (0, pad_r))), gts,
+        priors.astype(np.float32))
+    rel = float(np.max(np.abs(sharded - host) / np.abs(host)))
+    check(rel <= 1e-5, f"{what}: stage-0 scores differ by {rel} relative")
+    params = Params()
+    keep_host = run_filter(gts, priors, best_aln, params.filt_diff, 5000)
+    keep_grid = select_by_scores(sharded.astype(np.float64),
+                                 params.filt_diff, 5000)
+    check(set(keep_host.tolist()) == set(keep_grid.tolist()),
+          f"{what}: the filter keeps {keep_grid.size} genotypes on the grid, "
+          f"{keep_host.size} on the host, "
+          f"{len(set(keep_host.tolist()) ^ set(keep_grid.tolist()))} differ")
+    t2 = time.perf_counter()
+
+    check(cap.chunk is not None, f"{what}: no genotype-sharded stage chunk")
+    run_solver, seed, chunk_gts, (liks, assgns) = cap.chunk
+    per, pad = M.shard_rows(grid, chunk_gts.shape[0])
+    padded = np.concatenate([chunk_gts, np.repeat(chunk_gts[-1:], pad, 0)])
+    G = chunk_gts.shape[0]
+    for ix, dev in enumerate(grid.shards):
+        lo, hi = ix * per, min((ix + 1) * per, G)
+        one_l, one_a = run_solver(derive_seed(seed, "shard", ix),
+                                  padded[ix * per:(ix + 1) * per], dev)
+        check(torch.equal(liks[lo:hi], one_l[:hi - lo].to(liks.device))
+              and torch.equal(assgns[lo:hi],
+                              one_a[:hi - lo].to(assgns.device)),
+              f"{what}: shard {ix} of the first stage chunk differs from "
+              "its one-device launch")
+    t3 = time.perf_counter()
+
+    st, pk, bayes, sgts, cfg = synthetic_problem(8 * grid.devices.size)
+    scores, fliks = M.full_step(grid, 0, st, pk, bayes, sgts,
+                                np.zeros(sgts.shape[0]), cfg, n_attempts=2)
+    one, _ = SQ.solve_genotypes(
+        0, sgts, st.hap_prob, st.hap_mid, st.unmapped_prob, pk.n_windows,
+        pk.reg_start, pk.contig_len, pk.gc_at, pk.weight_at, bayes, cfg,
+        n_attempts=2, max_windows=pk.max_windows, device=device)
+    sb = np.maximum(st.hap_prob.max(axis=2), st.unmapped_prob[None, :])
+    want_scores = np.maximum(sb[sgts[:, 0]], sb[sgts[:, 1]]).sum(axis=1)
+    check(np.allclose(scores, want_scores, rtol=1e-5, atol=0)
+          and np.array_equal(fliks, one.cpu().numpy())
+          and np.isfinite(fliks).all(),
+          f"{what}: full_step differs from one device")
+    print(f"{what} checks: sharded_align on all {n_jobs} jobs equals one "
+          f"device on every output ({t1 - t0:.2f} s); stage-0 scores of "
+          f"{gts.shape[0]} genotypes within {rel:.1e} relative of the host's, "
+          f"the same {keep_grid.size} kept ({t2 - t1:.2f} s); every shard of "
+          f"the first stage chunk ({G} genotypes, {per} a shard) equals its "
+          f"one-device launch ({t3 - t2:.2f} s); full_step on "
+          f"{sgts.shape[0]} genotypes equals one device", flush=True)
 
 
 def build_100k_sample(rng, locus_len=BIG_LOCUS, flank=50_000,
@@ -1284,6 +1572,8 @@ class Recorder:
         self.front = {}                 # entry -> (reads, k, w, S)
         self.widest = {}                # (path, kernel) -> widest launch
         self.greedy_iters = {}          # path -> [iterations of its chains]
+        self.recruited = {}             # genotype -o name -> {locus: names}
+        self._save_recruited = G._save_recruited
         self._align_banded = A.align_banded
         self._anneal_chains = SC.anneal_chains
         self._minimizer_front = R.minimizer_front
@@ -1336,8 +1626,14 @@ class Recorder:
             self.greedy_iters.setdefault(self.path, []).append(out[2])
             return out
 
+        def save_recruited(ldir, pairs, names):
+            self.recruited.setdefault(ldir.parent.parent.name, {})[
+                ldir.name] = list(names)
+            return self._save_recruited(ldir, pairs, names)
+
         A.align_banded, SC.anneal_chains = align_banded, anneal_chains
         R.minimizer_front, SQ._greedy_chain = minimizer_front, greedy_chain
+        G._save_recruited = save_recruited
         return self
 
     def __exit__(self, *exc):
@@ -1345,6 +1641,7 @@ class Recorder:
                                             self._anneal_chains)
         R.minimizer_front = self._minimizer_front
         SQ._greedy_chain = self._greedy_chain
+        G._save_recruited = self._save_recruited
 
 
 FRONT = ("minimizer_front_compact", "minimizer_front_full")
@@ -1352,13 +1649,18 @@ FRONT = ("minimizer_front_compact", "minimizer_front_full")
 NEEDS = {"a": ("align_banded", "anneal_chains", FRONT[0]),
          "a_cli": ("align_banded", "anneal_chains", FRONT[0]),
          "a_seq": ("align_banded", FRONT[0]),
+         "a_mesh": ("align_banded", "anneal_chains", FRONT[0]),
+         "a_mesh_cards": ("align_banded", "anneal_chains", FRONT[0]),
+         "a_batched": ("align_banded", FRONT[0]),
          "b": ("align_banded", "anneal_chains", FRONT[0]),
+         "b_mesh": ("align_banded", "anneal_chains", FRONT[0]),
          "c": ("align_banded", "anneal_chains", FRONT[1]),
          "d": ("align_banded", "anneal_chains", FRONT[0]),
          "e": ("align_banded", "anneal_chains", FRONT[1])}
-#: kernels that a sample must not launch: (a-seq) solves with the
-#: sequential engine, which has no kernel of its own
-NEVER = {"a_seq": ("anneal_chains",)}
+#: kernels that a sample must not launch: (a-seq) and (a-batched) solve
+#: with the sequential and the batched-move engines, which have no kernel of
+#: their own
+NEVER = {"a_seq": ("anneal_chains",), "a_batched": ("anneal_chains",)}
 
 
 def print_resources():
@@ -1407,6 +1709,14 @@ def main():
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    n_cards = torch.cuda.device_count()
+    cards_grid = M.auto_mesh()
+    print(f"cards: torch.cuda.device_count() = {n_cards}; (a-mesh) and "
+          f"(b-mesh) run {GRID} shards on card 0; "
+          + (f"(a-mesh) once more over the real auto_mesh(), {cards_grid}"
+             if cards_grid is not None else
+             "auto_mesh() gives no grid, so no run over distinct cards"),
+          flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
@@ -1438,6 +1748,7 @@ def main():
     phase_k2()
     phase_front()
     phase_seq()
+    phase_batched()
 
     rng = np.random.default_rng(0)
     panel_loci = [sim.simulate_locus(rng, f"B{i}", length=4000, n_haps=6,
@@ -1525,6 +1836,34 @@ def main():
                                                             big_reads)),
                     rp_big)[0], bg_big, 160, seed)
 
+        grid = M.make_mesh(devices=[torch.device("cuda", 0)] * GRID)
+
+        def run_mesh():
+            run_mesh_cli(f"(a-mesh) command line: genotype, {GRID} shards on "
+                         "card 0", tmp, panel_loci, fq1, fq2, grid,
+                         rec.recruited, "out_mesh")
+
+        def run_mesh_cards():
+            run_mesh_cli("(a-mesh) command line: genotype, the real "
+                         "auto_mesh() over distinct cards", tmp, panel_loci,
+                         fq1, fq2, None, rec.recruited, "out_mesh_cards")
+
+        def run_batched():
+            run_batched_cli("(a-batched) command line: genotype -S "
+                            "...,e=batched", tmp, panel_loci, fq1, fq2)
+
+        b_mesh = {}
+
+        def run_b_mesh(seed=2):
+            with MeshCapture() as cap:
+                b_mesh["cap"] = cap
+                return run_main_path(
+                    f"(b-mesh) HLA-scale locus, 200 haplotypes, {GRID} shards "
+                    "on card 0", hla_loci, hla_data, len(hla_reads[0]),
+                    lambda: G.recruit_reads(hla_data, zip(*hla_reads),
+                                            rp)[0], bg, 48, seed, mesh=grid,
+                    keep=b_mesh)
+
         wgs_preproc = []
 
         def run_d():
@@ -1533,10 +1872,14 @@ def main():
                 "(d) WGS-like, command line: add, preproc, genotype",
                 tmp / "d", panel_loci, np.random.default_rng(4))
 
+        paths_run = [("a", run_a), ("a_cli", run_cli), ("a_seq", run_seq),
+                     ("a_mesh", run_mesh), ("a_batched", run_batched),
+                     ("b", run_b), ("b_mesh", run_b_mesh), ("c", run_c),
+                     ("d", run_d), ("e", run_e)]
+        if cards_grid is not None:
+            paths_run.insert(4, ("a_mesh_cards", run_mesh_cards))
         recruited = {}
-        for key, run in (("a", run_a), ("a_cli", run_cli),
-                         ("a_seq", run_seq), ("b", run_b), ("c", run_c),
-                         ("d", run_d), ("e", run_e)):
+        for key, run in paths_run:
             rec.path = key
             _kernels.reset_launches()
             recruited[key] = run()
@@ -1557,6 +1900,9 @@ def main():
                            rp_long, ordered=False)
         check(rec.n_align_long.get("e", 0) > 0, "main path (e) launched "
               f"align_banded on no rows longer than {LONG_ROWS}")
+        check({k: v[1] for k, v in recruited["b_mesh"].items()}
+              == {k: v[1] for k, v in recruited["b"].items()},
+              "(b-mesh) recruited other reads than (b)")
 
         if want_profile:
             profile_main_path("(b) HLA-scale locus, traced",
@@ -1576,6 +1922,8 @@ def main():
                          lambda: check(cli.main(wgs_preproc) == 0,
                                        "(d) preproc, host functions"))
 
+    # Outside the recorder: these launches compare, they are no main path.
+    check_b_mesh("(b-mesh)", grid, b_mesh["cap"], b_mesh["built"])
     reads, lens, wins, svec, band = rec.align
     k1 = compare_align(reads, lens, wins, svec, band, "main-path launch")
     print(f"main-path launch of align_banded {k1['shape']} [N, L, band]: "

@@ -6,7 +6,10 @@ reads against all loci at once, then per locus run the recruit→align→solve
 pipeline and write res.json.gz.
 
 Recruitment, alignment and solving run on `args.device` (the CLI's
-`--device`, CUDA by default); a failure of any of them raises.
+`--device`, CUDA by default); a failure of any of them raises.  With more
+than one local card they are split over all of them
+(parallel/mesh.py:auto_mesh); with several processes (`torchrun`) the loci
+are split across processes (parallel/multihost.py).
 """
 from __future__ import annotations
 
@@ -287,6 +290,27 @@ def _leave_out(data: LocusData, names: set, tag: str) -> LocusData:
     return LocusData(cs, kc, dist)
 
 
+def _locus_cost_estimate(db: Path, name: str) -> float:
+    """Cheap per-locus cost proxy for multi-host LPT sharding: genotype
+    count (~H^2/2 at diploid) x mean haplotype length, read from the
+    haplotype FASTA headers/line lengths without building the locus.
+    Falls back to 1.0 (uniform) when unreadable."""
+    fa = Path(db) / paths.LOCI_DIR / name / paths.HAPLOTYPES
+    try:
+        n_haps, total = 0, 0
+        with gzip.open(fa, "rt") as f:
+            for line in f:
+                if line.startswith(">"):
+                    n_haps += 1
+                else:
+                    total += len(line) - 1
+        if n_haps == 0:
+            return 1.0
+        return (n_haps * (n_haps + 1) / 2.0) * (total / n_haps)
+    except OSError:
+        return 1.0
+
+
 def list_loci(db: Path) -> list[str]:
     loci_dir = Path(db) / paths.LOCI_DIR
     return sorted(d.name for d in loci_dir.iterdir()
@@ -503,10 +527,22 @@ def _recruit_fast_pass(order, loci, dev, path1, path2, subsample, seed,
                        batch, max_len, stats: dict | None = None,
                        device=None):
     """One full recruitment pass at a fixed batch width (recruit_reads_fast
-    restarts it on MaxLenExceeded).  One device; a parsed batch is
-    dispatched whole, with the rows it has."""
+    restarts it on MaxLenExceeded).  A parsed batch is dispatched whole,
+    with the rows it has, to one device or split over the local cards."""
     from ..seq.fastx import fast_paired_batches
     from ..ops.recruit import run_pairs_async, unpack_decisions
+    from ..parallel.mesh import MeshPairRecruiter, resolve_mesh
+
+    # Several cards: shard each batch over the grid (linear recruitment
+    # scaling across cards, no collectives); one device keeps the plain
+    # asynchronous path.
+    mesh = resolve_mesh("auto", device)
+    if mesh is not None:
+        dispatch = MeshPairRecruiter(mesh, dev).run_async
+        logger.info("Recruitment sharded over %d devices", mesh.devices.size)
+    else:
+        def dispatch(m1, m2):
+            return run_pairs_async(dev, m1, m2, device=device)
 
     out = {name: ([], []) for name in order}
     progress = Progress(logger, "reads")
@@ -575,8 +611,7 @@ def _recruit_fast_pass(order, loci, dev, path1, path2, subsample, seed,
         if first_scatter[0] is None and not pending:
             first_scatter[0] = _time.perf_counter()
         pending.append((names, m1, l1, m2, l2, count, keep,
-                        run_pairs_async(dev, m1[:count], m2[:count],
-                                        device=device)))
+                        dispatch(m1[:count], m2[:count])))
         # Pipeline depth 3: the upload of batch N and the download of
         # batch N-2's decisions overlap the device pass of batch N-1.
         while len(pending) > 3:
@@ -788,7 +823,17 @@ def _run(args):
     tech = bg.seq_info.technology
     _check_params_staleness(args, out, rerun)
 
-    locus_names = args.loci if args.loci else list_loci(db)
+    # Multi-host: loci split across processes (no collective on any tensor;
+    # parallel/multihost.py); cards within a host split each batch over
+    # the grid.  Cost-weighted LPT partition: per-locus wall time is
+    # dominated by genotype count x haplotype length (align + solve legs),
+    # so a panel mixing 6-hap and 300-hap loci leaves no round-robin
+    # stragglers (genotype.rs:1278-1298 outer loop).
+    from ..parallel.multihost import maybe_init_distributed, shard_loci
+    multi = maybe_init_distributed()
+    all_names = args.loci if args.loci else list_loci(db)
+    costs = [_locus_cost_estimate(db, n) for n in all_names] if multi else None
+    locus_names = shard_loci(all_names, costs)
     loci = {}
     todo = []
     for name in locus_names:
@@ -925,6 +970,7 @@ def _run(args):
     if len(todo) > 1:
         from ..bg.err_prof import EditDistCache, EditThresh
         from ..model.locs import build_all_alignments_panel
+        from ..parallel.mesh import resolve_mesh
         params.set_tweak_size(bg.depth.window_size)
         if params.band is None:
             params.band = 48 if tech.are_short_reads else 160
@@ -938,8 +984,9 @@ def _run(args):
 
         panel = [(recruited[n][0], recruited[n][1], loci[n].contig_set,
                   loci[n].kmer_counts, _panel_explicit(n)) for n in todo]
-        built = build_all_alignments_panel(panel, bg, edit_cache, params,
-                                           device=device)
+        built = build_all_alignments_panel(
+            panel, bg, edit_cache, params, device=device,
+            mesh=resolve_mesh("auto", device))
         panel_alns = dict(zip(todo, built))
         logger.info("Aligned %d loci in one device stream (%d reads)",
                     len(todo), sum(s["total"] for _, s in built))

@@ -419,66 +419,88 @@ def _prepare_align_jobs(mates, jobs, contig_set, band, L: int | None = None):
 
 
 def run_align_batches(reads, lens, wins, score_vec, band,
-                      batch: int | None = None, device=None) -> dict:
+                      batch: int | None = None, device=None,
+                      mesh=None) -> dict:
     """Streams [J, L] job arrays through the alignment kernel in batches;
     one blocking wait per batch at the end (launches and copies overlap) —
-    the reference's alignment worker pool (locs.rs:1120-1146).
+    the reference's alignment worker pool (locs.rs:1120-1146).  With
+    `mesh`, each batch is split over the grid's shards
+    (parallel/mesh.py:sharded_align).
 
     device: None = CUDA (raises without one); "cpu" = the plain PyTorch
     version of the kernel."""
     return collect_align_batches(
         dispatch_align_batches(reads, lens, wins, score_vec, band,
-                               batch=batch, device=device))
+                               batch=batch, device=device, mesh=mesh))
+
+
+def align_async(dev, reads, lens, wins, score_vec, band):
+    """One batch of jobs on `dev` (the current device): uploaded (with the
+    score vector) from pinned memory with `non_blocking=True`, so that no
+    copy waits for the kernels already queued, aligned by one kernel
+    launch, its eight outputs leaving as ONE [8, n] int32 tensor copied
+    asynchronously into pinned host memory.  Returns (result, event); the
+    event, recorded on `dev`'s current stream, marks the copy's end (None
+    on the CPU)."""
+    on_gpu = dev.type == "cuda"
+    args = []
+    for arr, dt in ((reads, np.int8), (lens, np.int32), (wins, np.int8),
+                    (score_vec, np.float32)):
+        t = torch.from_numpy(np.ascontiguousarray(arr, dt))
+        if on_gpu:
+            t = t.pin_memory().to(dev, non_blocking=True)
+        args.append(t)
+    res = _pack_align_results(A.align_banded(*args, band))
+    if not on_gpu:
+        return res, None
+    host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+    host.copy_(res, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(dev))
+    return host, event
 
 
 def dispatch_align_batches(reads, lens, wins, score_vec, band,
-                           batch: int | None = None, device=None) -> list:
+                           batch: int | None = None, device=None,
+                           mesh=None) -> list:
     """Dispatch half of `run_align_batches`: queues every batch on the
-    device and returns the pending list without waiting for the kernels —
-    callers may overlap host work (candidate voting of the next locus
-    group, post-alignment of the previous) with the device leg.
-
-    On CUDA each batch is uploaded as int8 from pinned memory with
-    `non_blocking=True`, aligned by one kernel launch, and its eight
-    outputs leave as ONE [8, n] int32 tensor copied asynchronously into
-    pinned host memory; an event marks the copy's end."""
-    dev = _kernels.resolve_device(device)
-    on_gpu = dev.type == "cuda"
+    device (`align_async`) and returns the pending list without waiting for
+    the kernels — callers may overlap host work (candidate voting of the
+    next locus group, post-alignment of the previous) with the device leg.
+    With `mesh`, every batch is split over the grid's shards, each shard's
+    copy marked by an event on its own device; `device` is then unused."""
     J, L = reads.shape
     if batch is None:
         # ~6 M read bases per launch: bounds the device buffers, any J runs.
         batch = max(512, min(32768, (6 << 20) // max(int(L), 1)))
-    sv = torch.as_tensor(np.asarray(score_vec, np.float32)).to(dev)
+    if mesh is not None:
+        from ..parallel.mesh import dispatch_sharded_align
+        pending = []
+        for s in range(0, J, batch):
+            sl = slice(s, min(s + batch, J))
+            pending.extend(dispatch_sharded_align(
+                mesh, reads[sl], lens[sl], wins[sl], score_vec, band))
+        return pending
+    dev = _kernels.resolve_device(device)
     pending = []
     for s in range(0, J, batch):
         sl = slice(s, min(s + batch, J))
-        args = []
-        for arr, dt in ((reads, np.int8), (lens, np.int32), (wins, np.int8)):
-            t = torch.from_numpy(np.ascontiguousarray(arr[sl], dt))
-            if on_gpu:
-                t = t.pin_memory().to(dev, non_blocking=True)
-            args.append(t)
-        res = _pack_align_results(A.align_banded(*args, sv, band))
-        event = None
-        if on_gpu:
-            host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
-            host.copy_(res, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-            res = host
-        pending.append((res, event))
+        pending.append(align_async(dev, reads[sl], lens[sl], wins[sl],
+                                   score_vec, band)
+                       + (sl.stop - sl.start,))
     return pending
 
 
 def collect_align_batches(pending: list) -> dict:
-    """Fetch half of `run_align_batches`: waits for each batch's copy."""
+    """Fetch half of `run_align_batches`: waits for each batch's copy and
+    keeps its first `keep` rows (a shard's padding rows go)."""
     if not pending:
         return {}
     out: dict = {k: [] for k in _ALIGN_KEYS}
-    for res, event in pending:
+    for res, event, keep in pending:
         if event is not None:
             event.synchronize()
-        for k, v in _unpack_align_results(res.numpy()).items():
+        for k, v in _unpack_align_results(res.numpy()[:, :keep]).items():
             out[k].append(v)
     return {k: np.concatenate(v) for k, v in out.items()}
 
@@ -754,7 +776,7 @@ def build_all_alignments(read_pairs, names, contig_set: ContigSet,
                          kmer_counts: KmerCounts, bg: BgDistr,
                          edit_cache: EditDistCache, params: Params,
                          minimizer_k: int = 15, minimizer_w: int = 10,
-                         explicit_weights=None, device=None):
+                         explicit_weights=None, device=None, mesh=None):
     """The full locs pipeline, fully vectorized: candidates → device
     alignment → dedup → edit/bounds filters → weights → pairing →
     per-(read,hap) top-K.  `read_pairs`: list of (codes1, codes2|None).
@@ -775,14 +797,15 @@ def build_all_alignments(read_pairs, names, contig_set: ContigSet,
     if req is not None:
         reads, lens, wins, score_vec, band = req
         res = run_align_batches(reads, lens, wins, score_vec, band,
-                                device=device)
+                                device=device, mesh=mesh)
     return gen.send(res)
 
 
 def build_all_alignments_panel(panel, bg: BgDistr, edit_cache: EditDistCache,
                                params: Params, minimizer_k: int = 15,
                                minimizer_w: int = 10,
-                               group_size: int | None = None, device=None):
+                               group_size: int | None = None, device=None,
+                               mesh=None):
     """Multi-locus device batching: candidate alignment jobs run as a
     global device stream (shared [*, L] bucket), amortizing dispatch
     latency across the panel.  Results are identical to per-locus
@@ -798,6 +821,8 @@ def build_all_alignments_panel(panel, bg: BgDistr, edit_cache: EditDistCache,
     panel: list of (read_pairs, names, contig_set, kmer_counts) tuples,
     optionally with a 5th element (ExplicitWeights | None — per-locus
     region-weighted alignment probs, windows.rs:508-575).
+    mesh: optional parallel/mesh.py grid; every device batch is then split
+    over its shards (`device` unused).
     Returns list of (AllAlignments, stats) in panel order.
     """
     from concurrent.futures import ThreadPoolExecutor
@@ -839,7 +864,8 @@ def build_all_alignments_panel(panel, bg: BgDistr, edit_cache: EditDistCache,
         cat_lens = np.concatenate([reqs[j][1] for j in live])
         cat_wins = np.concatenate([reqs[j][2] for j in live])
         pending = dispatch_align_batches(cat_reads, cat_lens, cat_wins,
-                                         score_vec, band, device=device)
+                                         score_vec, band, device=device,
+                                         mesh=mesh)
         return pending, live, [reqs[j][0].shape[0] for j in live]
 
     out = [None] * len(panel)

@@ -52,6 +52,10 @@ class SolverConfig:
     prob_diff: float = 4.605
     tweak: int = 50
     window_size: int = 100
+    # Batched-move engine (ops/solver_batched.py, `e=batched`): cooling
+    # super-steps and the share of accepted moves kept a super-step.
+    anneal_steps_b: int = 500
+    move_thin: float = 0.3
     # Depth-table height of the annealer (ops/solver_chains.py).  Depths
     # above this clamp to the last row; the sequential engine and the exact
     # ILP oracle score with DEPTH_CAP=256.
@@ -242,15 +246,16 @@ class _Draws:
         self.att = torch.arange(attempts, device=rows.device) \
             .repeat(rows.numel())
 
-    def uniforms(self, idx, kind: int):
+    def uniforms(self, idx, kind):
         """Four [C, n] float32 tensors in [0, 1) for the n indices `idx`
-        (int64, the same for every chain)."""
+        (int64, the same for every chain); `kind` is an int, or an int64
+        tensor of idx's shape (a kind for each index)."""
         shape = (self.row.numel(), idx.numel())
+        kind = torch.as_tensor(kind, dtype=torch.int64, device=idx.device)
         words = self._sc.philox4x32(
             self.row[:, None].expand(shape), self.att[:, None].expand(shape),
             idx.reshape(1, -1).expand(shape),
-            torch.full(shape, kind, dtype=torch.int64, device=idx.device),
-            self.k0, self.k1)
+            kind.reshape(1, -1).expand(shape), self.k0, self.k1)
         return [self._sc._u01(w) for w in words]
 
     def randint(self, u, bound):
@@ -545,6 +550,25 @@ def solve_genotypes(seed: int, genotypes, hap_prob, hap_mid, unmapped_prob,
     `device` (None = CUDA, raises without one; "cpu" = the CPU).
     Returns (liks [G, A] f32, assignments [G, A, R] int32 in the ORIGINAL
     candidate-slot order) on `device`."""
+    G = len(genotypes)
+    draws, prob = seq_setup(seed, genotypes, hap_prob, hap_mid, unmapped_prob,
+                            pack_nwin, pack_regstart, pack_len, gc_at,
+                            weight_at, bayes, cfg, n_attempts, max_windows,
+                            first_row, device)
+    chain = _greedy_chain if cfg.greedy_sample > 0 else _chain
+    lik, assgn, _ = chain(draws, prob, cfg, random_init)
+    return (lik.view(G, n_attempts),
+            assgn.to(torch.int32).view(G, n_attempts, -1))
+
+
+def seq_setup(seed: int, genotypes, hap_prob, hap_mid, unmapped_prob,
+              pack_nwin, pack_regstart, pack_len, gc_at, weight_at, bayes,
+              cfg: SolverConfig, n_attempts: int, max_windows: int,
+              first_row: int, device):
+    """The arrays moved to `device` (None = CUDA, raises without one), the
+    draws of genotype rows first_row.. and the prologue: (draws,
+    _SeqProblem) of a call of this engine or of the batched one
+    (ops/solver_batched.py)."""
     dev = _kernels.resolve_device(device)
 
     def put(x, dtype):
@@ -559,13 +583,10 @@ def solve_genotypes(seed: int, genotypes, hap_prob, hap_mid, unmapped_prob,
                                       pack_len, gc_at))
     G = genotypes.shape[0]
     draws = _Draws(seed, first_row + torch.arange(G, device=dev), n_attempts)
-    prob = _seq_problem(draws, genotypes, n_attempts, hap_prob, hap_mid,
-                        unmapped_prob, pack_nwin, pack_regstart, pack_len,
-                        gc_at, weight_at, bayes, cfg, max_windows)
-    chain = _greedy_chain if cfg.greedy_sample > 0 else _chain
-    lik, assgn, _ = chain(draws, prob, cfg, random_init)
-    return (lik.view(G, n_attempts),
-            assgn.to(torch.int32).view(G, n_attempts, -1))
+    return draws, _seq_problem(draws, genotypes, n_attempts, hap_prob,
+                               hap_mid, unmapped_prob, pack_nwin,
+                               pack_regstart, pack_len, gc_at, weight_at,
+                               bayes, cfg, max_windows)
 
 
 def build_bayes_table(depth_distrs, alt_cn, mul_coef: float,

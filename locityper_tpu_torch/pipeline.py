@@ -67,7 +67,7 @@ def genotype_locus(locus: LocusData, read_pairs, names, bg: BgDistr,
                    seed: int = 1, ploidy: int = 2, tag: str | None = None,
                    priors: dict | None = None, explicit_weights=None,
                    sam_dir=None, sol_path=None, debug: int = 0,
-                   out_dir=None, prebuilt_alns=None,
+                   out_dir=None, prebuilt_alns=None, mesh="auto",
                    device=None) -> tuple[Genotyping, dict]:
     """Genotypes one locus from recruited reads.
 
@@ -78,8 +78,13 @@ def genotype_locus(locus: LocusData, read_pairs, names, bg: BgDistr,
     model/locs.py:build_all_alignments_panel — multi-locus batched
     alignment (the per-locus align step is then skipped).
     device: None = CUDA (raises without one); "cpu" = plain PyTorch.
+    mesh: "auto" (default) splits alignment and solving over all local
+    cards when more than one is attached (parallel/mesh.py:auto_mesh); a
+    parallel/mesh.py Mesh; None forces the one device.
     """
+    from .parallel.mesh import resolve_mesh
     device = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
     params = params or Params()
     tag = tag or locus.contig_set.tag
     window_size = bg.depth.window_size
@@ -96,7 +101,7 @@ def genotype_locus(locus: LocusData, read_pairs, names, bg: BgDistr,
         all_alns, stats = build_all_alignments(
             read_pairs, names, locus.contig_set, locus.kmer_counts, bg,
             edit_cache, params, explicit_weights=explicit_weights,
-            device=device)
+            device=device, mesh=mesh)
     logger.info("    [%s] %d/%d reads usable (%d poorly mapped, %d out of "
                 "bounds, %d low weight)", tag, all_alns.n_used,
                 stats["total"], stats["poorly_mapped"], stats["out_of_bounds"],
@@ -122,7 +127,7 @@ def genotype_locus(locus: LocusData, read_pairs, names, bg: BgDistr,
                              scheme, seed, tag=tag,
                              dist_matrix=prep["dist_matrix"],
                              sol_writer=sol_writer, gt_names=gt_names,
-                             device=device)
+                             mesh=mesh, device=device)
     finally:
         if sol_writer is not None:
             sol_writer.close()
@@ -232,7 +237,7 @@ def _finalize_locus(result, locus: LocusData, all_alns, tensors, bg: BgDistr,
 
 def genotype_panel(entries: list, bg: BgDistr, params: Params | None = None,
                    scheme: Scheme | None = None, seed: int = 1,
-                   ploidy: int = 2, device=None) -> list:
+                   ploidy: int = 2, mesh="auto", device=None) -> list:
     """Genotypes a PANEL of loci with solver stages batched across loci
     (solvers/solve.py:solve_panel — chains from every locus share the
     annealer calls, so small per-locus genotype counts still fill the
@@ -243,10 +248,13 @@ def genotype_panel(entries: list, bg: BgDistr, params: Params | None = None,
         stats), and optionally priors, explicit_weights, sam_dir, sol_path,
         debug, out_dir.
     device: None = CUDA (raises without one); "cpu" = plain PyTorch.
+    mesh: as in `genotype_locus`.
     Returns list of (Genotyping, stats) in entry order.  Calls match
     per-locus `genotype_locus`.
     """
+    from .parallel.mesh import resolve_mesh
     device = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
     params = params or Params()
     scheme = scheme or Scheme.default()
     tech = bg.seq_info.technology
@@ -290,7 +298,7 @@ def genotype_panel(entries: list, bg: BgDistr, params: Params | None = None,
     if items:
         try:
             solved = solve_panel(items, bg, params, scheme, seed,
-                                 device=device)
+                                 mesh=mesh, device=device)
         finally:
             for w in writers:
                 w.close()

@@ -8,9 +8,11 @@ genotype distances (:472-767).
 
 Work placement differs from the reference by design: each stage launches
 one solver call per genotype chunk, evaluating (genotypes × attempts)
-chains in parallel — the parallel-chains annealer (ops/solver_chains.py) or
-the sequential engine (ops/solver.py, `e=seq`), both vectorised over the
-chains of a call — instead of sharding genotypes over CPU threads.
+chains in parallel — the parallel-chains annealer (ops/solver_chains.py),
+the sequential engine (ops/solver.py, `e=seq`) or the batched-move engine
+(ops/solver_batched.py, `e=batched`), each vectorised over the chains of a
+call — instead of sharding genotypes over CPU threads.  With a device grid
+(parallel/mesh.py) every chunk is split over its shards.
 """
 from __future__ import annotations
 
@@ -19,15 +21,15 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 from .. import _kernels, mathx
 from ..model import Params
 from ..model.assgn import LocusTensors
 from ..model.windows import ContigInfoPack
 from ..ops import solver as seq_solver
-from ..ops import solver_chains
+from ..ops import solver_batched, solver_chains
 from ..ops.solver import NEG, SolverConfig, build_bayes_table
+from ..parallel.mesh import sharded_filter_scores, solver_args_on
 from ..utils.logging import get_logger
 from ..utils.rng import derive_seed
 
@@ -60,9 +62,11 @@ class Stage:
     "seq" is the sequential engine of ops/solver.py with the reference's
     semantics: one Metropolis chain for anneal stages, the reference greedy
     (`s=` reads sampled per iteration, stop after a plateau of `p=`
-    iterations) for greedy stages; plain PyTorch on either device.  The
-    reference package's "batched" engine is not part of this package and
-    raises.
+    iterations) for greedy stages; plain PyTorch on either device.
+    "batched" is the batched-move engine of ops/solver_batched.py:
+    `b=` super-steps (`batched_steps`), cooling over `batched_anneal` of
+    them (0 for greedy stages, whose `b=` is capped at 400); plain PyTorch
+    on either device.
     """
     kind: str                    # "greedy" | "anneal"
     in_size: int = 1000
@@ -70,6 +74,8 @@ class Stage:
     anneal_steps: int = 20000
     polish_steps: int = 10000
     engine: str = "auto"
+    batched_steps: int = 1000
+    batched_anneal: int = 500
     # Reference-greedy knobs (stoch.rs:36-145): the seq engine implements
     # them exactly; the chains annealer runs a polish walk whose plateau is
     # derived from them (_stage_plato).
@@ -109,8 +115,13 @@ class Stage:
                     st.engine = v.strip()
                 elif k == "init":
                     st.seed_prev = v.strip() in ("prev", "stage1", "1")
+                elif k in ("b", "bsteps"):
+                    st.batched_steps = _parse_size(v)
                 else:
                     logger.warning("Unknown stage parameter %r", k)
+        if st.kind == "greedy":
+            st.batched_anneal = 0
+            st.batched_steps = min(st.batched_steps, 400)
         return st
 
 
@@ -122,7 +133,8 @@ class Scheme:
     def default(cls) -> "Scheme":
         """greedy:i=5k,a=1 → anneal:i=20,a=20 (solve.rs:211-229)."""
         return cls([Stage(kind="greedy", in_size=5000, attempts=1,
-                          anneal_steps=0, polish_steps=8000),
+                          anneal_steps=0, polish_steps=8000,
+                          batched_anneal=0, batched_steps=400),
                     Stage(kind="anneal", in_size=20, attempts=20)])
 
     @classmethod
@@ -351,32 +363,41 @@ def _candidate_k_cap(tensors, ploidy: int) -> int | None:
     return k_eff if k_eff < k_full else None
 
 
-def _resolve_engine(stage: Stage, mesh) -> str:
-    """The engine that runs `stage`: "seq" or "chains"."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-GPU solving (mesh) is not ported yet — ROADMAP.md A12")
-    if stage.engine == "seq":
-        return "seq"
+def _resolve_engine(stage: Stage) -> str:
+    """The engine that runs `stage`: "seq", "batched" or "chains"."""
+    if stage.engine in ("seq", "batched"):
+        return stage.engine
     if stage.engine in ("auto", "chains", "pallas"):
         return "chains"
-    if stage.engine == "batched":
-        raise NotImplementedError(
-            "solver engine 'batched' is not part of this package — "
-            "ROADMAP.md 'Do not port'")
     raise ValueError(f"Unknown solver engine {stage.engine!r}")
 
 
-def _device_solver_args(tensors, pack, bayes, device):
-    """The 9 array operands every stage call passes to the annealer, moved
-    to the device ONCE per solve."""
-    f32, i32 = torch.float32, torch.int32
-    args = ((tensors.hap_prob, f32), (tensors.hap_mid, i32),
-            (tensors.unmapped_prob, f32), (pack.n_windows, i32),
-            (pack.reg_start, i32), (pack.contig_len, i32),
-            (pack.gc_at, i32), (pack.weight_at, f32), (bayes, f32))
-    return tuple(torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt)
-                 for a, dt in args)
+def _stage_runner(engine: str, stage: Stage, cfg: SolverConfig, dev_args,
+                  max_windows: int, random_init: bool, k_cap):
+    """run(seed, gts, device, init=None) -> (liks [g, A], assgns [g, A, R])
+    of `stage`'s engine on one device (`init`: the chains engine's warm
+    start)."""
+    def run(seed, gts, dev, init=None):
+        args = dev_args[dev]
+        if engine == "seq":
+            # The reference's seq branch: no k_eff, no plateau polish, no
+            # warm start (solvers/solve.py:765-806).
+            return seq_solver.solve_genotypes(
+                seed, gts, *args, cfg, n_attempts=stage.attempts,
+                max_windows=max_windows, random_init=random_init,
+                device=dev)
+        if engine == "batched":
+            return solver_batched.solve_genotypes(
+                seed, gts, *args, cfg, n_attempts=stage.attempts,
+                max_windows=max_windows, n_steps=stage.batched_steps,
+                random_init=random_init, device=dev)
+        return solver_chains.solve_genotypes(
+            seed, gts, *args, cfg, n_attempts=stage.attempts,
+            max_windows=max_windows,
+            n_steps=cfg.anneal_steps + cfg.polish_steps,
+            random_init=random_init, k_eff=k_cap, plato=_stage_plato(stage),
+            init_assgn=init, device=dev)
+    return run
 
 
 def solve_locus(tensors: LocusTensors, pack: ContigInfoPack, bg_distr,
@@ -390,6 +411,10 @@ def solve_locus(tensors: LocusTensors, pack: ContigInfoPack, bg_distr,
     sol_writer: optional text stream receiving per-stage scores
     ("stage\\tgenotype\\tscore", counterpart of sol.csv.gz, solve.rs:918-919).
     device: None = CUDA (raises without one); "cpu" = the CPU.
+    mesh: optional parallel/mesh.py grid — the stage-0 filter runs
+    read-sharded and every solver stage genotype-sharded over the whole
+    grid (the reference's solver worker pool, solve.rs:969-1127); `device`
+    is then unused.
     """
     item = PanelItem(tensors=tensors, pack=pack, genotypes=genotypes,
                      priors=priors, tag=tag, dist_matrix=dist_matrix,
@@ -477,7 +502,8 @@ def solve_panel(items: list, bg_distr, params: Params, scheme: Scheme,
 
     seed: integer; every stage chunk derives its own generator seed from
     (seed, stage, chunk start).  device: None = CUDA (raises without one);
-    "cpu" = the CPU.  Returns list[Genotyping] in `items` order.
+    "cpu" = the CPU.  mesh: as in `solve_locus`.  Returns list[Genotyping]
+    in `items` order.
     """
     sizes = [it.pack.window_size for it in items]
     if len(set(sizes)) > 1:
@@ -500,15 +526,21 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
                        seed: int, gt_batch: int, mesh, device) -> list:
     """One combined multi-stage program over loci sharing a window size
     (`solve_panel` body; see its docstring)."""
-    engines = [_resolve_engine(stage, mesh) for stage in scheme.stages]
-    dev = _kernels.resolve_device(device)
+    engines = [_resolve_engine(stage) for stage in scheme.stages]
+    dev = mesh.shards[0] if mesh is not None \
+        else _kernels.resolve_device(device)
     n_loci = len(items)
     t_c0 = time.monotonic()
     tensors, pack, offsets = _combine_panel(items)
     mul_coef = 2.0 if bg_distr.insert_distr.is_paired_end else 1.0
     bayes = build_bayes_table(bg_distr.depth.distributions,
                               list(params.alt_cn), mul_coef)
-    dev_args = _device_solver_args(tensors, pack, bayes, dev)
+    # The 9 array operands of every stage call, moved ONCE per solve to
+    # each device.
+    dev_args = solver_args_on(
+        [dev] if mesh is None else mesh.distinct, tensors.hap_prob,
+        tensors.hap_mid, tensors.unmapped_prob, pack.n_windows,
+        pack.reg_start, pack.contig_len, pack.gc_at, pack.weight_at, bayes)
     k_cap = _candidate_k_cap(tensors, int(items[0].genotypes.shape[-1]))
     logger.debug("    combine+upload: %.2fs (R=%d, W=%d)",
                  time.monotonic() - t_c0, tensors.n_reads,
@@ -521,16 +553,26 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
             it.sol_writer.write(
                 f"{stage_ix}\t{name}\t{mathx.to_log10(score):.4f}\n")
 
-    # Per-locus stage-0 filter (host; pure alignment likelihood).
+    # Per-locus stage-0 filter on pure alignment likelihood: on the host,
+    # or read-sharded over the grid (reference solvers/solve.py:428-436).
     ixs_per: list[np.ndarray] = []
     for it in items:
         t = it.tensors
         n_real = t.n_reads
         best_aln = np.maximum(t.hap_prob[:, :n_real].max(axis=2),
                               t.unmapped_prob[None, :n_real])
-        ixs_per.append(run_filter(it.genotypes, it.priors, best_aln,
-                                  params.filt_diff,
-                                  scheme.stages[0].in_size))
+        if mesh is not None:
+            pad_r = (-n_real) % mesh.shape["read"]
+            ba = np.pad(best_aln, ((0, 0), (0, pad_r)))  # zeros shift all
+            scores = sharded_filter_scores(
+                mesh, ba, it.genotypes, np.asarray(it.priors, np.float32))
+            ixs_per.append(select_by_scores(scores.astype(np.float64),
+                                            params.filt_diff,
+                                            scheme.stages[0].in_size))
+        else:
+            ixs_per.append(run_filter(it.genotypes, it.priors, best_aln,
+                                      params.filt_diff,
+                                      scheme.stages[0].in_size))
 
     preds_per: list[dict] = [{} for _ in items]
     seed_rows: dict = {}    # (locus, ix) -> permuted best row (init=prev)
@@ -556,6 +598,7 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
             prob_diff=params.prob_diff,
             tweak=int(params.tweak or 0),
             window_size=pack.window_size,
+            anneal_steps_b=stage.batched_anneal,
             greedy_sample=(stage.sample
                            if stage.kind == "greedy" and engine == "seq"
                            else 0),
@@ -564,7 +607,7 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
         final_stage = out_size is None
         # init=prev seeding (chains engine): the NEXT stage wants this
         # stage's best assignments (permuted slot space) as warm starts.
-        next_seed = (not final_stage and engine == "chains"
+        next_seed = (not final_stage and engine == "chains" and mesh is None
                      and scheme.stages[s_ix + 1].seed_prev)
 
         # Combined genotype list over the active loci.
@@ -576,34 +619,31 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
             rows.extend((li, int(ix)) for ix in ixs_per[li])
         all_gts = np.concatenate(g_parts)
 
+        run_solver = _stage_runner(engine, stage, cfg, dev_args,
+                                   pack.max_windows, random_init, k_cap)
         # Two-phase chunk pipeline: launch EVERY chunk (the device queues
         # them back to back), then fetch and digest in order.  Non-final
         # stages only rank by likelihood, so their [G, A, R] assignments
-        # stay on the device unless the next stage seeds from them.
+        # stay on the device unless the next stage seeds from them.  Under
+        # a grid every chunk is split over its shards, with no warm start
+        # (as in the reference).
         pend = []
         for st, take in _gt_chunks(all_gts.shape[0], gt_batch):
             chunk_rows = rows[st:st + take]
             gts = all_gts[st:st + take]
             stage_seed = derive_seed(seed, s_ix * 100003 + st)
-            if engine == "seq":
-                # The reference's seq branch: no k_eff, no plateau polish,
-                # no warm start (solvers/solve.py:765-806).
-                liks, assgns = seq_solver.solve_genotypes(
-                    stage_seed, gts, *dev_args, cfg,
-                    n_attempts=stage.attempts, max_windows=pack.max_windows,
-                    random_init=random_init, device=dev)
+            if mesh is not None:
+                # Looked up at call time: `chip_smoke.py` wraps it.
+                from ..parallel.mesh import sharded_stage_solver
+                liks, assgns = sharded_stage_solver(mesh, run_solver,
+                                                    stage_seed, gts)
             else:
                 init_ = None
-                if stage.seed_prev and all(k in seed_rows
-                                           for k in chunk_rows):
+                if (stage.seed_prev and engine == "chains"
+                        and all(k in seed_rows for k in chunk_rows)):
                     init_ = np.stack([seed_rows[k] for k in chunk_rows])
                     init_ = np.repeat(init_[:, None, :], stage.attempts, 1)
-                liks, assgns = solver_chains.solve_genotypes(
-                    stage_seed, gts, *dev_args, cfg,
-                    n_attempts=stage.attempts, max_windows=pack.max_windows,
-                    n_steps=cfg.anneal_steps + cfg.polish_steps,
-                    random_init=random_init, k_eff=k_cap,
-                    plato=_stage_plato(stage), init_assgn=init_, device=dev)
+                liks, assgns = run_solver(stage_seed, gts, dev, init_)
             pend.append((chunk_rows, gts, liks,
                          assgns if final_stage or next_seed else None))
         seed_rows = {}
@@ -621,7 +661,7 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
                 if final_stage and engine == "chains":
                     # The annealer's assignments live in the valid-first
                     # permuted slot space; map back to candidate slots (the
-                    # seq engine returns candidate slots).
+                    # seq and batched engines return candidate slots).
                     assgns = _unpermute_assignments(assgns, gts, tensors,
                                                     params)
             for gi, (li, ix) in enumerate(chunk_rows):

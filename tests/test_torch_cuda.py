@@ -275,3 +275,135 @@ def test_seq_chain_reaches_ilp_optimum_on_card(card):
                           anneal_steps=4000, polish_steps=4000)
         assert float(liks.max()) == pytest.approx(ilp_lik, abs=1e-3)
         assert float(liks.max()) <= ilp_lik + 1e-3
+
+
+def card_mesh(card, n=2):
+    from locityper_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(devices=[card] * n)
+
+
+def test_sharded_align_on_a_grid_of_one_card(card):
+    """K1 under a grid of two shards on the card: padding (999 jobs), one
+    launch a shard, every output equal to the one-device call's."""
+    from locityper_tpu_torch import _kernels
+    from locityper_tpu_torch.model.locs import run_align_batches
+    from locityper_tpu_torch.parallel.mesh import sharded_align
+    rng = np.random.default_rng(2)
+    N, L, band = 999, 150, 48
+    hap = rng.integers(0, 4, 20_000).astype(np.int8)
+    start = rng.integers(band, hap.size - 2 * L, N)
+    reads = hap[start[:, None] + np.arange(L)[None, :]].copy()
+    reads[rng.random((N, L)) < 0.02] = 3
+    lens = rng.integers(L // 2, L + 1, N).astype(np.int32)
+    wins = hap[(start - band // 2)[:, None] + np.arange(L + band)[None, :]]
+    sv = np.array(TA.Scores.from_error_rates(0.002, 0.0002, 0.0002)
+                  .astuple(), np.float32)
+    want = run_align_batches(reads, lens, wins, sv, band, device=card)
+    _kernels.reset_launches()
+    got = sharded_align(card_mesh(card), reads, lens, wins, sv, band)
+    assert _kernels.LAUNCHES["align_banded"] == 2
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_sharded_recruit_on_a_grid_of_one_card(card):
+    """K3 under a grid of two shards on the card: the packed decisions
+    equal the one-device call's and the CPU's, mates row-aligned within a
+    shard (63 pairs: padding)."""
+    from locityper_tpu_torch import _kernels, sim
+    from locityper_tpu_torch.ops import recruit as TR
+    from locityper_tpu_torch.parallel.mesh import MeshPairRecruiter
+    from locityper_tpu_torch.seq import dna
+    from locityper_tpu_torch.seq.contigs import ContigSet
+    from locityper_tpu_torch.seq.counts import (GenomeKmerCounter,
+                                                off_target_counts)
+    from locityper_tpu_torch.seq.recruit import RecruitParams, TargetIndex
+    rng = np.random.default_rng(0)
+    locus = sim.simulate_locus(rng, length=2000, n_haps=3)
+    counter = GenomeKmerCounter(25)
+    counter.add_seq(np.concatenate([sim.random_genome(rng, 5000),
+                                    locus.haplotypes[0]]))
+    counter.finalize()
+    idx = TargetIndex(RecruitParams(match_frac=0.5))
+    idx.add_locus(ContigSet(locus.name, locus.hap_names, locus.haplotypes),
+                  off_target_counts(counter, locus.haplotypes,
+                                    locus.haplotypes[0]))
+    idx.finalize()
+    dev = TR.DeviceIndex.from_index(idx)
+    B, L = 63, 192
+    r1 = np.full((B, L), 4, np.int8)
+    r2 = np.full((B, L), 4, np.int8)
+    for i in range(B):
+        s = int(rng.integers(0, 1800))
+        r1[i, :150] = locus.haplotypes[i % 3][s:s + 150]
+        r2[i, :150] = dna.revcomp(locus.haplotypes[0][s:s + 150])
+        if i % 5 == 0:
+            r1[i, :150] = rng.integers(0, 4, 150)
+    want = TR.run_pairs_async(dev, r1, r2, device=card).numpy()
+    _kernels.reset_launches()
+    got = MeshPairRecruiter(card_mesh(card), dev).run_async(r1, r2).numpy()
+    assert _kernels.LAUNCHES["minimizer_front_compact"] == 2
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, TR.run_pairs_async(dev, r1, r2, device="cpu").numpy())
+    hits = TR.unpack_decisions(got, dev.n_loci)
+    assert hits.any() and not hits.all()
+
+
+def test_sharded_stage_solver_on_a_grid_of_one_card(card):
+    """K2 under a grid of two shards on the card: each shard's likelihoods
+    and assignments equal one launch on its rows with its seed."""
+    from locityper_tpu_torch import _kernels
+    from locityper_tpu_torch.ops.solver import SolverConfig
+    from locityper_tpu_torch.parallel.mesh import sharded_stage_solver
+    from locityper_tpu_torch.utils.rng import derive_seed
+    tensors, pack, bayes, params = ilp_problem(1)
+    cfg = SolverConfig(anneal_steps=2000, polish_steps=1000, tweak=0,
+                       window_size=pack.window_size)
+    args = (tensors.hap_prob, tensors.hap_mid, tensors.unmapped_prob,
+            pack.n_windows, pack.reg_start, pack.contig_len, pack.gc_at,
+            pack.weight_at, bayes)
+
+    def run(seed, gts, dev):
+        return TC.solve_genotypes(seed, gts, *args, cfg, n_attempts=4,
+                                  max_windows=pack.max_windows, device=dev)
+
+    gts = np.array(ALL_GTS[:5])
+    _kernels.reset_launches()
+    liks, assgns = sharded_stage_solver(card_mesh(card), run, 21, gts)
+    assert _kernels.LAUNCHES["anneal_chains"] == 2
+    for ix, (lo, hi) in enumerate(((0, 3), (3, 5))):
+        padded = np.concatenate([gts, gts[-1:]])[3 * ix:3 * ix + 3]
+        one_l, one_a = run(derive_seed(21, "shard", ix), padded, card)
+        assert torch.equal(liks[lo:hi], one_l[:hi - lo])
+        assert torch.equal(assgns[lo:hi], one_a[:hi - lo])
+
+
+@pytest.mark.parametrize("device", ["card", "cpu"])
+def test_batched_engine_reaches_ilp_optimum(card, device):
+    """`e=batched` (plain PyTorch) on the card and on the CPU:
+    tests/test_ilp.py:78's bar, the best of 8 attempts of 1,000
+    super-steps within 0.05 of the exact optimum."""
+    from locityper_tpu_torch.ops import solver_batched as TB
+    from locityper_tpu_torch.ops.solver import SolverConfig
+    from locityper_tpu_torch.solvers import ilp
+    dev = card if device == "card" else "cpu"
+    for seed in (0, 1, 2):
+        tensors, pack, bayes, params = ilp_problem(seed)
+        _, ilp_lik = ilp.solve_ilp((0, 2), tensors, pack, bayes, params)
+        cfg = SolverConfig(
+            anneal_steps=0, polish_steps=0,
+            depth_contrib=params.depth_contrib,
+            aln_contrib=params.aln_contrib, prob_diff=params.prob_diff,
+            tweak=0, window_size=pack.window_size, anneal_steps_b=500,
+            move_thin=0.3)
+        liks, _ = TB.solve_genotypes(
+            seed, np.array([(0, 2)]), tensors.hap_prob, tensors.hap_mid,
+            tensors.unmapped_prob, pack.n_windows, pack.reg_start,
+            pack.contig_len, pack.gc_at, pack.weight_at, bayes, cfg,
+            n_attempts=8, max_windows=pack.max_windows, n_steps=1000,
+            device=dev)
+        assert liks.device.type == torch.device(dev).type
+        best = float(liks.max())
+        assert best == pytest.approx(ilp_lik, abs=0.05)
+        assert best <= ilp_lik + 0.05

@@ -24,9 +24,10 @@ from locityper_tpu.solvers.solve import Scheme as JScheme
 from locityper_tpu_torch.bg.err_prof import EditDistCache, EditThresh
 from locityper_tpu_torch.model import Params
 from locityper_tpu_torch.model.locs import build_all_alignments_panel
+from locityper_tpu_torch.parallel.mesh import make_mesh
 from locityper_tpu_torch.pipeline import (_prepare_solve_inputs,
                                           genotype_locus, genotype_panel)
-from locityper_tpu_torch.solvers.solve import (PanelItem, Scheme, Stage,
+from locityper_tpu_torch.solvers.solve import (PanelItem, Scheme,
                                                solve_locus, solve_panel)
 
 # One intra-op thread: the suite runs several workers side by side, and the
@@ -161,15 +162,22 @@ def test_genotype_locus_and_unported_options(solved):
         prebuilt_alns=e["prebuilt"], device="cpu")
     assert tuple(sorted(res.genotypes[0])) == TRUTH[1]
     assert stats == e["prebuilt"][1]
-    for spec, exc in (("anneal:e=batched", NotImplementedError),
-                      ("anneal:e=nope", ValueError)):
-        with pytest.raises(exc):
-            genotype_locus(e["locus"], e["read_pairs"], e["names"], bg,
-                           params=params, scheme=Scheme.parse([spec]),
-                           prebuilt_alns=e["prebuilt"], device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        solve_panel([], bg, params, Scheme([Stage(kind="anneal")]), 1,
-                    mesh=object(), device="cpu")
+    with pytest.raises(ValueError):
+        genotype_locus(e["locus"], e["read_pairs"], e["names"], bg,
+                       params=params, scheme=Scheme.parse(["anneal:e=nope"]),
+                       prebuilt_alns=e["prebuilt"], device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        genotype_locus(e["locus"], e["read_pairs"], e["names"], bg,
+                       params=params, prebuilt_alns=e["prebuilt"],
+                       mesh="all", device="cpu")
+    # Since the last modules were ported, the batched engine and a grid of
+    # devices run: here the batched engine on a grid of 2 CPU shards.
+    res, _ = genotype_locus(
+        e["locus"], e["read_pairs"], e["names"], bg, params=params,
+        scheme=Scheme.parse(["anneal:i=8,a=4,b=300,e=batched"]), seed=4,
+        prebuilt_alns=e["prebuilt"], mesh=make_mesh(devices=["cpu"] * 2),
+        device="cpu")
+    assert tuple(sorted(res.genotypes[0])) == TRUTH[1]
 
 
 def test_scheme_parsing_equal():

@@ -329,7 +329,8 @@ def test_panel_calls_equal_reference_seq_engine(panel_solved):
 
 def test_engine_names(panel_solved):
     """e=pallas is the chains annealer (the reference's name for the kernel
-    that it replaces), e=seq the sequential engine, e=batched raises."""
+    that it replaces), e=seq the sequential engine, e=batched the
+    batched-move engine."""
     bg, params = panel_solved["bg"], panel_solved["params"]
     items = []
     for e in panel_solved["entries"]:
@@ -346,9 +347,9 @@ def test_engine_names(panel_solved):
                            device="cpu")
 
     pallas, chains, seq = solve("pallas"), solve("chains"), solve("seq")
-    for a, b, c, truth in zip(pallas, chains, seq, TRUTH):
+    batched = solve("batched")
+    for a, b, c, d, truth in zip(pallas, chains, seq, batched, TRUTH):
         assert a.genotypes == b.genotypes
         np.testing.assert_array_equal(a.ln_probs, b.ln_probs)
         assert tuple(sorted(c.genotypes[0])) == truth
-    with pytest.raises(NotImplementedError, match="batched"):
-        solve("batched")
+        assert tuple(sorted(d.genotypes[0])) == truth
