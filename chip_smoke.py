@@ -47,6 +47,16 @@ reference-default scheme) on simulated samples whose truth is known:
        98,304 bases, and 4x of background from the left flank, recruited by
        `recruit_reads` (full-width front end at rows of 131,072), aligned at
        band 160 on rows longer than 65,536, default scheme.
+  (f)  extra/panel_setup.py:make_panel(100) rebuilt with the port's
+       `sim.py`: 100 loci x 6 haplotypes of 4 kb between 101 random flanks
+       of 20 kb, 15x pairs from each locus's true genotype (~40,000, drawn
+       by `simulate_paired_reads`) and ~1,010,000 background pairs from the
+       flanks (10 x 15x, drawn by `sample_pairs`), in two gzip FASTQ files;
+       `cli.main(["add", ...])` builds the database and `genotype` (default
+       scheme) goes from FASTQ to 100 res.json.gz.  Its recruitment index
+       has ~159,000 keys and 4 bitmap words a key (`n_groups` 4).  Every
+       call must equal the truth; the command line's recruited reads of
+       the first 131,072 pairs are held against the host engine.
 
   (a-mesh) the files of (a') through `genotype` with
        `parallel.mesh.auto_mesh` returning a 2 x 2 grid of 4 shards on card
@@ -127,7 +137,8 @@ No single PyTorch call computes any of these functions, so `library_ms` is
 null.
 
 With `--profile`, samples (b) and (a), the recruit phases of (a) and (c)
-alone, and the `preproc` of (d) are run once more under `torch.profiler`
+alone, the `preproc` of (d) and the `genotype` of (f) are run once more
+under `torch.profiler`
 after everything else, and the device's busy share of each run and the
 device time by kernel name are printed (before the two closing JSON lines);
 the `preproc` of (d) runs a third time under cProfile, which prints the
@@ -136,6 +147,7 @@ compiled once more with `-Xptxas -v` right after the build, and the
 registers and the spilled bytes of every kernel instantiation are printed.
 """
 import gzip
+import itertools
 import json
 import logging
 import re
@@ -175,7 +187,7 @@ from locityper_tpu_torch.seq import bam as tbam
 from locityper_tpu_torch.seq import fastx
 from locityper_tpu_torch.seq.contigs import ContigSet
 from locityper_tpu_torch.seq.counts import GenomeKmerCounter, off_target_counts
-from locityper_tpu_torch.seq.recruit import RecruitParams
+from locityper_tpu_torch.seq.recruit import RecruitParams, TargetIndex
 from locityper_tpu_torch.solvers import ilp
 from locityper_tpu_torch.solvers.solve import (Scheme, _unpermute_assignments,
                                                run_filter, select_by_scores)
@@ -191,10 +203,13 @@ LONG_ROWS = 8192              # above this the reference streams rows (K4)
 # Times of the first designs of the kernels (one thread a chain; one warp a
 # job with the best end searched in every row; one block a read row) on the
 # main path's largest launches, as this script read them on an NVIDIA H100
-# 80GB HBM3, 700.00 W, before the redesign: ms a launch.
+# 80GB HBM3, 700.00 W, before the redesign: ms a launch.  The annealer's
+# were read on launches of EARLIER_CHAINS chains; since (f) the main path's
+# largest Metropolis launch has more.
 EARLIER_MS = {"align_banded": 1.970, "align_banded_long_rows": 18.974,
               "anneal_chains_anneal": 43.766, "anneal_chains_polish": 2.729,
               "minimizer_front_compact": 0.320, "minimizer_front_full": 0.173}
+EARLIER_CHAINS = {"anneal": 1600, "polish": 512}
 DEPTH = 15.0
 BACKGROUND_MULTIPLE = 10        # (a): off-locus read mass / locus flanks
 WGS_CONTIG = 9_000_000          # (d): one contig; preproc's background is
@@ -206,6 +221,8 @@ BATCHED_SCHEME = ["greedy:i=5k,a=1,e=batched", "anneal:i=20,a=20,e=batched"]
 GRID = 4                        # (a-mesh), (b-mesh): 2 x 2 shards on one card
 BIG_LOCUS = 98_304              # (e): extra/validate_stream_100k.py
 BIG_READS = (65_536, 98_304)    # (e): longer than the first, at most the second
+PANEL_LOCI = 100                # (f): extra/panel_setup.py:make_panel(100)
+PANEL_HOST_PAIRS = 131_072      # (f): pairs held against the host engine
 
 
 class Failed(Exception):
@@ -989,10 +1006,9 @@ def check_alignment_files(what, out, loci, results, map_out):
     return n_best, n_all
 
 
-def run_cli_path(what, tmp, loci, genome, fq1, fq2, device_args=()):
-    """`add` then `genotype` through the command line, FASTQ to
-    res.json.gz and the best genotype's BAM and SAM files, on the default
-    device (CUDA); then `genotype --stop-after map`."""
+def locus_starts(genome, loci):
+    """Where `build_genome` put the loci's first haplotypes: between flanks
+    of one length."""
     pos, starts = 0, []
     flank = (genome.size - sum(lc.haplotypes[0].size for lc in loci)) \
         // (len(loci) + 1)
@@ -1000,7 +1016,15 @@ def run_cli_path(what, tmp, loci, genome, fq1, fq2, device_args=()):
         pos += flank
         starts.append(pos)
         pos += lc.haplotypes[0].size
-    ref, bed = write_locus_files(what, tmp, loci, genome, starts)
+    return starts
+
+
+def run_cli_path(what, tmp, loci, genome, fq1, fq2, device_args=()):
+    """`add` then `genotype` through the command line, FASTQ to
+    res.json.gz and the best genotype's BAM and SAM files, on the default
+    device (CUDA); then `genotype --stop-after map`."""
+    ref, bed = write_locus_files(what, tmp, loci, genome,
+                                 locus_starts(genome, loci))
     db, prep, out = tmp / "db", tmp / "sample", tmp / "out"
     t0 = time.perf_counter()
     rc = cli.main([*device_args, "add", "-d", str(db), "-r", str(ref),
@@ -1368,9 +1392,10 @@ def sample_pairs(rng, copies, depth, sub_rate, read_len=150,
     return np.concatenate(firsts)[order], np.concatenate(seconds)[order]
 
 
-def write_fastq_arrays(path, reads, prefix):
+def write_fastq_arrays(path, reads, prefix, mode="wb"):
     """One gzip FASTQ of equal-length reads, written as one byte array:
-    names `<prefix><index, 8 digits>`, qualities `I`."""
+    names `<prefix><index, 8 digits>`, qualities `I`.  `mode="ab"` appends
+    them to `path` as another gzip member."""
     n, L = reads.shape
     digits = (np.arange(n)[:, None] // 10 ** np.arange(7, -1, -1)) % 10
     name = np.concatenate([np.full((n, 1), ord("@")),
@@ -1382,7 +1407,7 @@ def write_fastq_arrays(path, reads, prefix):
     qual = np.full((n, L), ord("I"))
     rec = np.concatenate([name, seq, plus, qual, np.full((n, 1), ord("\n"))],
                          1).astype(np.uint8)
-    with gzip.open(path, "wb", compresslevel=1) as f:
+    with gzip.open(path, mode, compresslevel=1) as f:
         f.write(rec.tobytes())
 
 
@@ -1430,6 +1455,7 @@ def run_wgs_path(what, tmp, loci, rng, contig_len=WGS_CONTIG,
     t4 = time.perf_counter()
     check(rc == 0, f"{what}: preproc returned {rc}")
     region = log.find(r"Background region: (\S+)")
+    n_keys = log.find(r"Recruitment index: (\d+) minimizers")
     recruited = int(log.find(r"Recruited (\d+) read pairs"))
     estimated = int(log.find(r"Subsampled to (\d+) reads for estimation")
                     or recruited)
@@ -1464,7 +1490,8 @@ def run_wgs_path(what, tmp, loci, rng, contig_len=WGS_CONTIG,
             if torch.cuda.is_available() else float("nan"))
     print(f"main path {what}: add {t3 - t2:.2f} s, preproc {t4 - t3:.2f} s "
           f"(reference, k-mer counts and index / recruitment / estimation "
-          f"{legs} s; background {region}, {recruited} pairs recruited, "
+          f"{legs} s; background {region}, its index {n_keys} keys, "
+          f"{recruited} pairs recruited, "
           f"{estimated} estimated from; insert {insert:.1f}, depth "
           f"{depth:.2f}x, "
           f"mismatches {100 * mism:.4f} %), genotype {t5 - t4:.2f} s, "
@@ -1472,6 +1499,116 @@ def run_wgs_path(what, tmp, loci, rng, contig_len=WGS_CONTIG,
           f"memory {peak:.0f} MiB; launches {dict(_kernels.LAUNCHES)}",
           flush=True)
     return preproc + ["--rerun", "all"]
+
+
+# -- (f): the reference's 100-locus panel through add and genotype ----------
+
+def build_panel_sample(rng, n_loci=PANEL_LOCI,
+                       background_multiple=BACKGROUND_MULTIPLE):
+    """extra/panel_setup.py:make_panel(n_loci)'s panel with the port's
+    sim.py: n_loci loci x 6 haplotypes of 4 kb between n_loci + 1 random
+    flanks of 20 kb; 15x pairs from each locus's true genotype
+    (`simulate_paired_reads`, (a)'s error model), and background from the
+    flanks at background_multiple x 15x, drawn by `sample_pairs` (0.2 %
+    substitutions, no indels).  Returns (loci, genome, (names, reads1,
+    reads2) of the locus pairs, (bg1, bg2) [N, 150] arrays)."""
+    loci = [sim.simulate_locus(rng, f"B{i}", length=4000, n_haps=6,
+                               divergence=0.015) for i in range(n_loci)]
+    genome, flanks, _ = build_genome(loci, rng, 20000)
+    err = sim.ErrorModel(0.002, 0.0002, 0.0002)
+    pools = [sim.simulate_paired_reads(
+        rng, [locus.haplotypes[i] for i in locus.true_genotype], depth=DEPTH,
+        read_len=150, errors=err, prefix=locus.name) for locus in loci]
+    locus_reads = tuple([x for p in pools for x in getattr(p, f)]
+                        for f in ("names", "reads1", "reads2"))
+    background = sample_pairs(rng, flanks, DEPTH * background_multiple,
+                              err.mismatch)
+    return loci, genome, locus_reads, background
+
+
+def write_panel_fastq(tmp, locus_reads, background):
+    """Two gzip FASTQ files: the locus pairs (of unequal lengths) read by
+    read, then the background appended as one gzip member, named
+    `bg<index, 8 digits>`."""
+    fq1, fq2 = write_fastq_pair(tmp, *locus_reads)
+    write_fastq_arrays(fq1, background[0], "bg", mode="ab")
+    write_fastq_arrays(fq2, background[1], "bg", mode="ab")
+    return fq1, fq2
+
+
+def first_pairs(locus_reads, background, n):
+    """The first n pairs of `write_panel_fastq`'s files, as (name, mate 1,
+    mate 2)."""
+    yield from itertools.islice(zip(*locus_reads), n)
+    for i in range(max(0, min(n - len(locus_reads[0]),
+                              background[0].shape[0]))):
+        yield f"bg{i:08d}", background[0][i], background[1][i]
+
+
+def run_panel_path(what, tmp, loci, genome, fq1, fq2, device_args=(),
+                   saved_at=None):
+    """`add` for the panel's loci, then `genotype` with the default scheme
+    from FASTQ to one res.json.gz a locus in `out_f`, on the default device
+    (CUDA); every call must equal the truth.  `saved_at` ({output name: host clock of the first
+    recruited-read checkpoint}, the Recorder's) splits recruitment from
+    alignment.  Returns (database, the index's key count, the `genotype`
+    arguments to run it again)."""
+    ref, bed = write_locus_files(what, tmp, loci, genome,
+                                 locus_starts(genome, loci))
+    db, prep, out = tmp / "db", tmp / "sample", tmp / "out_f"
+    t0 = time.perf_counter()
+    rc = cli.main([*device_args, "add", "-d", str(db), "-r", str(ref),
+                   "-l", str(bed), "-s", str(tmp / "haps_{}.fa")])
+    check(rc == 0, f"{what}: add returned {rc}")
+    paths.bg_dir(prep).mkdir(parents=True)
+    make_bg().save(paths.bg_dir(prep) / paths.BG_DISTR)
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    genotype = [*device_args, "genotype", "-i", str(fq1), str(fq2), "-d",
+                str(db), "-p", str(prep), "-o", str(out), "--seed", "1"]
+    with LogLines() as log:
+        rc = cli.main(genotype)
+        sync()
+    t2 = time.perf_counter()
+    check(rc == 0, f"{what}: genotype returned {rc}")
+    check_calls(what, out, loci)
+    n_keys = int(log.find(r"Recruitment index: (\d+) minimizers"))
+    peak = (torch.cuda.max_memory_allocated() / 2**20
+            if torch.cuda.is_available() else float("nan"))
+    legs = ""
+    if saved_at is not None and out.name in saved_at:
+        # database / recruitment / alignment / solving / writing
+        marks = [t1, log.when("Recruitment index"), saved_at[out.name],
+                 log.when("Aligned "), log.when(r"\[\S+\] GT = "), t2]
+        legs = " (database / recruitment / alignment / solving / writing " \
+            + " / ".join(f"{b - a:.2f}" for a, b in zip(marks, marks[1:])) \
+            + " s)"
+    print(f"main path {what}: add {t1 - t0:.2f} s, genotype (FASTQ to "
+          f"res.json.gz) {t2 - t1:.2f} s{legs}; recruitment index "
+          f"{n_keys} keys; {len(loci)}/{len(loci)} "
+          f"res.json.gz name the truth; peak device memory {peak:.0f} MiB; "
+          f"launches {dict(_kernels.LAUNCHES)}", flush=True)
+    return db, n_keys, genotype + ["--rerun", "all"]
+
+
+def check_panel_index(what, db, names, rp, n_keys):
+    """The loci's data from the database, and their recruitment index built
+    as `recruit_reads_fast` builds it: it must have the command line's key
+    count and one bitmap word for every 32 loci."""
+    data = {n: G.load_locus(db, n) for n in names}
+    index = TargetIndex(rp)
+    for name in names:
+        index.add_locus(data[name].contig_set, data[name].kmer_counts)
+    index.finalize()
+    dev = R.DeviceIndex.from_index(index)
+    check(dev.keys.size == n_keys and dev.n_groups == -(-len(names) // 32),
+          f"{what}: index of {dev.keys.size} keys (the command line's "
+          f"{n_keys}), n_groups {dev.n_groups}")
+    print(f"index {what}: {dev.keys.size} keys over {dev.n_loci} loci, "
+          f"n_groups {dev.n_groups}, rows of {dev.packed.shape[1]} words",
+          flush=True)
+    return data
 
 
 class LogLines(logging.Handler):
@@ -1500,8 +1637,8 @@ class LogLines(logging.Handler):
 
     def when(self, start):
         """The host clock (`time.perf_counter`) of the first message that
-        begins with `start`."""
-        created = next(t for t, line in self.lines if line.startswith(start))
+        begins with a match of the regular expression `start`."""
+        created = next(t for t, line in self.lines if re.match(start, line))
         return time.perf_counter() - (time.time() - created)
 
 
@@ -1573,6 +1710,7 @@ class Recorder:
         self.widest = {}                # (path, kernel) -> widest launch
         self.greedy_iters = {}          # path -> [iterations of its chains]
         self.recruited = {}             # genotype -o name -> {locus: names}
+        self.saved_at = {}              # genotype -o name -> first save
         self._save_recruited = G._save_recruited
         self._align_banded = A.align_banded
         self._anneal_chains = SC.anneal_chains
@@ -1627,6 +1765,8 @@ class Recorder:
             return out
 
         def save_recruited(ldir, pairs, names):
+            self.saved_at.setdefault(ldir.parent.parent.name,
+                                     time.perf_counter())
             self.recruited.setdefault(ldir.parent.parent.name, {})[
                 ldir.name] = list(names)
             return self._save_recruited(ldir, pairs, names)
@@ -1656,7 +1796,8 @@ NEEDS = {"a": ("align_banded", "anneal_chains", FRONT[0]),
          "b_mesh": ("align_banded", "anneal_chains", FRONT[0]),
          "c": ("align_banded", "anneal_chains", FRONT[1]),
          "d": ("align_banded", "anneal_chains", FRONT[0]),
-         "e": ("align_banded", "anneal_chains", FRONT[1])}
+         "e": ("align_banded", "anneal_chains", FRONT[1]),
+         "f": ("align_banded", "anneal_chains", FRONT[0])}
 #: kernels that a sample must not launch: (a-seq) and (a-batched) solve
 #: with the sequential and the batched-move engines, which have no kernel of
 #: their own
@@ -1776,6 +1917,13 @@ def main():
           f"{max(r.size for r in big_reads):,}; built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
+    f_loci, f_genome, f_reads, f_bg = build_panel_sample(
+        np.random.default_rng(0))
+    print(f"sample (f): {len(f_loci)} loci, {len(f_reads[0])} locus pairs "
+          f"and {f_bg[0].shape[0]} background pairs built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     bg, bg_long = make_bg(), make_bg_long()
     rp = RecruitParams(match_frac=Technology.ILLUMINA.default_match_frac(True))
     rp_long = RecruitParams(
@@ -1872,10 +2020,25 @@ def main():
                 "(d) WGS-like, command line: add, preproc, genotype",
                 tmp / "d", panel_loci, np.random.default_rng(4))
 
+        panel_f = {}
+
+        def run_f():
+            (tmp / "f").mkdir()
+            t0 = time.perf_counter()
+            panel_f["fq"] = write_panel_fastq(tmp / "f", f_reads, f_bg)
+            print(f"sample (f): {len(f_reads[0]) + f_bg[0].shape[0]} pairs "
+                  f"written to two gzip FASTQ files in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            db, n_keys, argv = run_panel_path(
+                f"(f) panel {len(f_loci)} loci x 6 haplotypes, command line: "
+                "add, genotype", tmp / "f", f_loci, f_genome,
+                *panel_f["fq"], saved_at=rec.saved_at)
+            panel_f.update(db=db, n_keys=n_keys, argv=argv)
+
         paths_run = [("a", run_a), ("a_cli", run_cli), ("a_seq", run_seq),
                      ("a_mesh", run_mesh), ("a_batched", run_batched),
                      ("b", run_b), ("b_mesh", run_b_mesh), ("c", run_c),
-                     ("d", run_d), ("e", run_e)]
+                     ("d", run_d), ("f", run_f), ("e", run_e)]
         if cards_grid is not None:
             paths_run.insert(4, ("a_mesh_cards", run_mesh_cards))
         recruited = {}
@@ -1903,6 +2066,15 @@ def main():
         check({k: v[1] for k, v in recruited["b_mesh"].items()}
               == {k: v[1] for k, v in recruited["b"].items()},
               "(b-mesh) recruited other reads than (b)")
+        f_data = check_panel_index("(f)", panel_f["db"],
+                                   [lc.name for lc in f_loci], rp,
+                                   panel_f["n_keys"])
+        first = list(first_pairs(f_reads, f_bg, PANEL_HOST_PAIRS))
+        keep = {name for name, _, _ in first}
+        check_against_host(
+            f"(f), first {len(first):,} pairs", f_data,
+            {n: (None, [x for x in v if x in keep])
+             for n, v in rec.recruited["out_f"].items()}, iter(first), rp)
 
         if want_profile:
             profile_main_path("(b) HLA-scale locus, traced",
@@ -1921,6 +2093,9 @@ def main():
             profile_host("(d) preproc, host functions",
                          lambda: check(cli.main(wgs_preproc) == 0,
                                        "(d) preproc, host functions"))
+            profile_main_path("(f) genotype, traced",
+                              lambda: check(cli.main(panel_f["argv"]) == 0,
+                                            "(f) genotype, traced"))
 
     # Outside the recorder: these launches compare, they are no main path.
     check_b_mesh("(b-mesh)", grid, b_mesh["cap"], b_mesh["built"])
@@ -1983,7 +2158,8 @@ def main():
               f"{m['shape']['C'] * m['shape']['n_steps']}, "
               f"{m['rounds_per_batch']:.2f} evaluation rounds a batch of 32 "
               f"steps; {m['ms']:.3f} ms (earlier design "
-              f"{EARLIER_MS['anneal_chains_' + mode]} ms), "
+              f"{EARLIER_MS['anneal_chains_' + mode]} ms on "
+              f"{EARLIER_CHAINS[mode]:,} chains), "
               f"{m['moves'] / m['ms'] * 1e3:.3e} moves/s "
               f"(plain {m['plain_ms']:.0f} ms, bound {m['bound_ms']:.4f} ms "
               f"by {m['bound_by']})", flush=True)

@@ -15,6 +15,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from locityper_tpu import sim
 from locityper_tpu.ops import recruit as JR
+from locityper_tpu.seq import dna
 from locityper_tpu.seq.contigs import ContigSet
 from locityper_tpu.seq.counts import GenomeKmerCounter, off_target_counts
 from locityper_tpu.seq.recruit import (RecruitParams, TargetIndex,
@@ -431,19 +432,30 @@ def test_device_index_equals_reference(index, n_loci):
     assert (keys[1:] > keys[:-1]).all()
 
 
-def test_device_index_many_loci_spans_groups():
-    """40 loci: two bitmap words per key, some keys shared by loci."""
-    rng = np.random.default_rng(4)
+def many_loci_index(n_loci=40, seed=4):
+    """(TargetIndex, the loci's sequences): n_loci loci of 700 bp, each a
+    random 400 bp followed by 300 bp that all loci share."""
+    rng = np.random.default_rng(seed)
     idx = TargetIndex(RecruitParams(match_frac=0.5))
     shared = sim.random_genome(rng, 300)
-    for i in range(40):
+    seqs = []
+    for i in range(n_loci):
         seq = np.concatenate([sim.random_genome(rng, 400), shared])
         kc = type("KC", (), {"k": 25, "counts": [
             rng.integers(0, 20, seq.size - 24).astype(np.uint16)]})()
         idx.add_locus(ContigSet(f"L{i}", [f"h{i}"], [seq]), kc)
+        seqs.append(seq)
     idx.finalize()
+    return idx, seqs
+
+
+@pytest.mark.parametrize("n_loci,n_groups", [(40, 2), (100, 4)])
+def test_device_index_many_loci_spans_groups(n_loci, n_groups):
+    """40 and 100 loci: two and four bitmap words per key, some keys shared
+    by all loci."""
+    idx, _ = many_loci_index(n_loci)
     jdev, tdev, _ = both_indexes(idx)
-    assert tdev.n_groups == 2 and idx.max_entries_per_key == 40
+    assert tdev.n_groups == n_groups and idx.max_entries_per_key == n_loci
     assert_same_index(tdev, jdev)
 
 
@@ -543,6 +555,42 @@ def test_run_short_two_loci(world):
         got = TR.run_short(dev, m, device="cpu")
         assert got.tolist() == [[True, False], [False, True], [False, False]]
     np.testing.assert_array_equal(got, JR.run_short(jdev, m))
+
+
+@pytest.mark.parametrize("n_loci", [40, 100])
+@pytest.mark.parametrize("kind", ["pairs", "short"])
+def test_many_loci_decisions_equal_reference_and_host(kind, n_loci):
+    """Decisions over two and four bitmap words a key: three pairs from
+    every locus, background pairs, and a pair with one mate off the loci.
+    The host engine reads the rows as the device does, N padding included."""
+    idx, seqs = many_loci_index(n_loci)
+    jdev, tdev, _ = both_indexes(idx)
+    rng = np.random.default_rng(9)
+    genome = rng.integers(0, 4, 20000).astype(np.int8)
+    r1, r2 = [], []
+    for s in seqs:
+        for _ in range(3):
+            st = int(rng.integers(0, s.size - 300))
+            r1.append(s[st:st + 150])
+            r2.append(dna.revcomp(s[st + 150:st + 300]))
+    for st in range(0, 6000, 300):
+        r1.append(genome[st:st + 150])
+        r2.append(dna.revcomp(genome[st + 150:st + 300]))
+    r1.append(seqs[0][:150])
+    r2.append(genome[9000:9150])
+    m1, m2 = batch(r1, 192), batch(r2, 192)
+    m1[rng.integers(0, len(r1), 20), rng.integers(0, 150, 20)] = 4     # Ns
+    if kind == "pairs":
+        got = TR.run_pairs(tdev, m1, m2, device="cpu")
+        np.testing.assert_array_equal(got, JR.run_pairs(jdev, m1, m2))
+        host = [recruit_read_pair(idx, m1[i], m2[i]) for i in range(len(r1))]
+    else:
+        got = TR.run_short(tdev, m1, device="cpu")
+        np.testing.assert_array_equal(got, JR.run_short(jdev, m1))
+        host = [recruit_short_read(idx, m1[i]) for i in range(len(r1))]
+    assert [sorted(np.nonzero(g)[0].tolist()) for g in got] == host
+    assert got.any() and not got.all()
+    assert got[:, 32 * (tdev.n_groups - 1):].any()  # hits in the last word
 
 
 def test_run_long_equals_reference_and_host(world):
