@@ -57,6 +57,20 @@ reference-default scheme) on simulated samples whose truth is known:
        has ~159,000 keys and 4 bitmap words a key (`n_groups` 4).  Every
        call must equal the truth; the command line's recruited reads of
        the first 131,072 pairs are held against the host engine.
+  (g)  extra/hla_scale.py's panel (its defaults, seed 0) rebuilt with the
+       port's `sim.py`: 5 loci of 4 kb, each 200 haplotypes in 10 clades
+       (20,100 genotypes at the stage-0 filter), 15x pairs from each true
+       genotype plus 15x background from the 6 random flanks of 20 kb (8,000
+       pairs), in two gzip FASTQ files; `cli.main(["add", ...])` builds the
+       database and `genotype` (default scheme) goes from FASTQ to 5
+       res.json.gz.  Every call must equal the truth; the command line's
+       recruited reads are held against the host engine on every pair.
+  (g-2proc) (g)'s `genotype` once more as two processes of the port's
+       command line on the one card (MASTER_ADDR, MASTER_PORT, WORLD_SIZE 2
+       and RANK 0 and 1 in their environment, one output directory): both
+       must exit 0, split the loci 3 and 2 by the cost-weighted LPT rule,
+       genotype each locus once, and call (g)'s genotypes; each process's
+       wall seconds and launches are printed.
 
   (a-mesh) the files of (a') through `genotype` with
        `parallel.mesh.auto_mesh` returning a 2 x 2 grid of 4 shards on card
@@ -86,10 +100,14 @@ optimum on the card and on the CPU.  The card count
 
 Every call must equal the simulated truth.  The launch counts are set to 0
 just before each sample and read just after it, and each kernel must have
-been launched in each sample that needs it.  The script needs a CUDA device
-(it exits with a non-zero code without one), imports neither `jax` nor the
-JAX package, needs no network and starts no process that outlives it
-(`nvcc`, `make` and `nvidia-smi` are waited for).
+been launched in each sample that needs it; the processes of (g-2proc)
+start with counts of 0, print theirs when they end, and each must have
+launched every kernel of (g), while this process launches none meanwhile
+(their sum is (g-2proc)'s entry in `launches_by_path`).  The script needs a
+CUDA device (it exits with a non-zero code without one), imports neither
+`jax` nor the JAX package, needs no network and starts no process that
+outlives it (`nvcc`, `make`, `nvidia-smi` and the processes of (g-2proc)
+are waited for, the latter killed after WORLD_TIMEOUT seconds).
 
 Output: one line per phase; then a JSON line `{"kernels": [...]}` with, for
 each kernel, its launches on the main path (`launches`, the sum of
@@ -150,7 +168,9 @@ import gzip
 import itertools
 import json
 import logging
+import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -223,6 +243,9 @@ BIG_LOCUS = 98_304              # (e): extra/validate_stream_100k.py
 BIG_READS = (65_536, 98_304)    # (e): longer than the first, at most the second
 PANEL_LOCI = 100                # (f): extra/panel_setup.py:make_panel(100)
 PANEL_HOST_PAIRS = 131_072      # (f): pairs held against the host engine
+HLA_LOCI = 5                    # (g): extra/hla_scale.py's defaults
+WORLD = 2                       # (g-2proc): processes on the one card
+WORLD_TIMEOUT = 900             # (g-2proc): seconds before they are killed
 
 
 class Failed(Exception):
@@ -1545,17 +1568,18 @@ def first_pairs(locus_reads, background, n):
         yield f"bg{i:08d}", background[0][i], background[1][i]
 
 
-def run_panel_path(what, tmp, loci, genome, fq1, fq2, device_args=(),
-                   saved_at=None):
+def run_panel_path(what, tmp, loci, genome, fq1, fq2, out_name,
+                   device_args=(), saved_at=None):
     """`add` for the panel's loci, then `genotype` with the default scheme
-    from FASTQ to one res.json.gz a locus in `out_f`, on the default device
-    (CUDA); every call must equal the truth.  `saved_at` ({output name: host clock of the first
-    recruited-read checkpoint}, the Recorder's) splits recruitment from
-    alignment.  Returns (database, the index's key count, the `genotype`
-    arguments to run it again)."""
+    from FASTQ to one res.json.gz a locus in `tmp / out_name`, on the
+    default device (CUDA); every call must equal the truth.  `saved_at`
+    ({output name: host clock of the first recruited-read checkpoint}, the
+    Recorder's) splits recruitment from alignment.  Returns (database, the
+    index's key count, the `genotype` arguments to run it again, the calls
+    by locus)."""
     ref, bed = write_locus_files(what, tmp, loci, genome,
                                  locus_starts(genome, loci))
-    db, prep, out = tmp / "db", tmp / "sample", tmp / "out_f"
+    db, prep, out = tmp / "db", tmp / "sample", tmp / out_name
     t0 = time.perf_counter()
     rc = cli.main([*device_args, "add", "-d", str(db), "-r", str(ref),
                    "-l", str(bed), "-s", str(tmp / "haps_{}.fa")])
@@ -1572,7 +1596,7 @@ def run_panel_path(what, tmp, loci, genome, fq1, fq2, device_args=(),
         sync()
     t2 = time.perf_counter()
     check(rc == 0, f"{what}: genotype returned {rc}")
-    check_calls(what, out, loci)
+    results = check_calls(what, out, loci)
     n_keys = int(log.find(r"Recruitment index: (\d+) minimizers"))
     peak = (torch.cuda.max_memory_allocated() / 2**20
             if torch.cuda.is_available() else float("nan"))
@@ -1589,7 +1613,8 @@ def run_panel_path(what, tmp, loci, genome, fq1, fq2, device_args=(),
           f"{n_keys} keys; {len(loci)}/{len(loci)} "
           f"res.json.gz name the truth; peak device memory {peak:.0f} MiB; "
           f"launches {dict(_kernels.LAUNCHES)}", flush=True)
-    return db, n_keys, genotype + ["--rerun", "all"]
+    return db, n_keys, genotype + ["--rerun", "all"], {
+        name: res["genotype"] for name, res in results.items()}
 
 
 def check_panel_index(what, db, names, rp, n_keys):
@@ -1609,6 +1634,103 @@ def check_panel_index(what, db, names, rp, n_keys):
           f"n_groups {dev.n_groups}, rows of {dev.packed.shape[1]} words",
           flush=True)
     return data
+
+
+# -- (g): extra/hla_scale.py's panel through add and genotype ----------------
+
+def build_hla_panel(rng, n_loci=HLA_LOCI, n_clades=10, haps_per_clade=20,
+                    length=4000):
+    """extra/hla_scale.py:build_panel's panel with the port's sim.py and
+    that script's defaults: n_loci structured loci (n_clades clades of
+    haps_per_clade haplotypes, 2 % between clades, 0.3 % within), 20 kb
+    flanks between them, 15x pairs from each true genotype and 15x from the
+    flanks.  Returns (loci, genome, (names, reads1, reads2))."""
+    loci = [sim.simulate_structured_locus(
+        rng, f"HLA{i}", length=length, n_clades=n_clades,
+        haps_per_clade=haps_per_clade, clade_divergence=0.02,
+        within_divergence=0.003) for i in range(n_loci)]
+    genome, _, reads = build_sample(loci, rng, 1)
+    return loci, genome, reads
+
+
+_WORKER = r"""
+import json, sys
+from locityper_tpu_torch import _kernels, cli
+rc = cli.main(sys.argv[1:])
+print("launches " + json.dumps(_kernels.LAUNCHES), flush=True)
+sys.exit(rc)
+"""
+
+
+def run_processes(what, tmp, loci, argv, out_name, calls):
+    """`argv` (a `genotype` command line writing to `tmp / out_name`) as
+    WORLD processes of the port's command line, joined through the
+    environment that `torchrun` sets, all on this machine's default device.
+    Every process must exit 0, the cost-weighted LPT split must give each
+    its share of the loci, every locus must be genotyped by one process and
+    called as in `calls`.  Returns each process's launch counts."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = str(Path(__file__).resolve().parent)
+    argv = [*argv[:argv.index("-o") + 1], str(tmp / out_name),
+            *argv[argv.index("-o") + 2:]]
+    procs, logs = [], []
+    try:
+        t0 = time.perf_counter()
+        for rank in range(WORLD):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), WORLD_SIZE=str(WORLD),
+                       RANK=str(rank), PYTHONPATH=os.pathsep.join(
+                           [root, os.environ.get("PYTHONPATH", "")]))
+            logs.append(tmp / f"{out_name}.{rank}.log")
+            with open(logs[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _WORKER, *argv], env=env,
+                    stdout=log, stderr=subprocess.STDOUT))
+        walls = [None] * WORLD
+        while None in walls:
+            check(time.perf_counter() - t0 < WORLD_TIMEOUT,
+                  f"{what}: processes still running after {WORLD_TIMEOUT} s")
+            for rank, proc in enumerate(procs):
+                if walls[rank] is None and proc.poll() is not None:
+                    walls[rank] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    texts = [log.read_text() for log in logs]
+    for rank, (proc, text) in enumerate(zip(procs, texts)):
+        check(proc.returncode == 0, f"{what}: process {rank} exited "
+              f"{proc.returncode}:\n{text[-3000:]}")
+    names = [lc.name for lc in loci]
+    shares = []
+    for rank, text in enumerate(texts):
+        m = re.search(rf"Host {rank}/{WORLD} takes (\d+)/{len(loci)} loci",
+                      text)
+        check(m, f"{what}: process {rank} logged no share of the loci")
+        shares.append(int(m.group(1)))
+    done = [{n for n in names if f"[{n}] GT =" in text} for text in texts]
+    check(sorted(shares) == sorted(
+        len(loci) // WORLD + (r < len(loci) % WORLD) for r in range(WORLD))
+        and [len(d) for d in done] == shares
+        and set().union(*done) == set(names)
+        and sum(shares) == len(names),
+        f"{what}: shares {shares}, loci genotyped {done}")
+    got = {name: res["genotype"]
+           for name, res in check_calls(what, tmp / out_name, loci).items()}
+    check(got == calls, f"{what}: calls {got}, one process's {calls}")
+    launches = [json.loads(re.findall(r"^launches (.*)$", text, re.M)[-1])
+                for text in texts]
+    print(f"main path {what}: {WORLD} processes, exit codes "
+          f"{[p.returncode for p in procs]}, loci {shares} "
+          f"({[sorted(d) for d in done]}), wall "
+          + " / ".join(f"{w:.2f}" for w in walls) + " s; "
+          f"{len(loci)}/{len(loci)} res.json.gz equal the one-process calls; "
+          f"launches {launches}", flush=True)
+    return launches
 
 
 class LogLines(logging.Handler):
@@ -1797,7 +1919,9 @@ NEEDS = {"a": ("align_banded", "anneal_chains", FRONT[0]),
          "c": ("align_banded", "anneal_chains", FRONT[1]),
          "d": ("align_banded", "anneal_chains", FRONT[0]),
          "e": ("align_banded", "anneal_chains", FRONT[1]),
-         "f": ("align_banded", "anneal_chains", FRONT[0])}
+         "f": ("align_banded", "anneal_chains", FRONT[0]),
+         "g": ("align_banded", "anneal_chains", FRONT[0]),
+         "g_2proc": ("align_banded", "anneal_chains", FRONT[0])}
 #: kernels that a sample must not launch: (a-seq) and (a-batched) solve
 #: with the sequential and the batched-move engines, which have no kernel of
 #: their own
@@ -1924,6 +2048,12 @@ def main():
           f"and {f_bg[0].shape[0]} background pairs built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
+    g_loci, g_genome, g_reads = build_hla_panel(np.random.default_rng(0))
+    print(f"sample (g): {len(g_loci)} loci x {len(g_loci[0].haplotypes)} "
+          f"haplotypes, {len(g_reads[0])} pairs built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     bg, bg_long = make_bg(), make_bg_long()
     rp = RecruitParams(match_frac=Technology.ILLUMINA.default_match_frac(True))
     rp_long = RecruitParams(
@@ -2029,16 +2159,35 @@ def main():
             print(f"sample (f): {len(f_reads[0]) + f_bg[0].shape[0]} pairs "
                   f"written to two gzip FASTQ files in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
-            db, n_keys, argv = run_panel_path(
+            db, n_keys, argv, _ = run_panel_path(
                 f"(f) panel {len(f_loci)} loci x 6 haplotypes, command line: "
                 "add, genotype", tmp / "f", f_loci, f_genome,
-                *panel_f["fq"], saved_at=rec.saved_at)
+                *panel_f["fq"], "out_f", saved_at=rec.saved_at)
             panel_f.update(db=db, n_keys=n_keys, argv=argv)
+
+        panel_g = {}
+
+        def run_g():
+            (tmp / "g").mkdir()
+            fq = write_fastq_pair(tmp / "g", *g_reads)
+            db, n_keys, argv, calls = run_panel_path(
+                f"(g) HLA-scale panel, {len(g_loci)} loci x "
+                f"{len(g_loci[0].haplotypes)} haplotypes, command line: add, "
+                "genotype", tmp / "g", g_loci, g_genome, *fq, "out_g",
+                saved_at=rec.saved_at)
+            panel_g.update(db=db, n_keys=n_keys, argv=argv, calls=calls)
+
+        def run_g_2proc():
+            panel_g["launches"] = run_processes(
+                f"(g-2proc) (g)'s genotype as {WORLD} processes on the card",
+                tmp / "g", g_loci, panel_g["argv"], "out_g2proc",
+                panel_g["calls"])
 
         paths_run = [("a", run_a), ("a_cli", run_cli), ("a_seq", run_seq),
                      ("a_mesh", run_mesh), ("a_batched", run_batched),
                      ("b", run_b), ("b_mesh", run_b_mesh), ("c", run_c),
-                     ("d", run_d), ("f", run_f), ("e", run_e)]
+                     ("d", run_d), ("f", run_f), ("g", run_g),
+                     ("g_2proc", run_g_2proc), ("e", run_e)]
         if cards_grid is not None:
             paths_run.insert(4, ("a_mesh_cards", run_mesh_cards))
         recruited = {}
@@ -2047,6 +2196,17 @@ def main():
             _kernels.reset_launches()
             recruited[key] = run()
             launches[key] = dict(_kernels.LAUNCHES)
+            if key == "g_2proc":
+                # The processes' own counts; this one launched nothing.
+                check(not any(launches[key].values()),
+                      f"(g-2proc) launched {launches[key]} in this process")
+                for rank, counts in enumerate(panel_g["launches"]):
+                    for name in NEEDS[key]:
+                        check(counts[name] > 0, f"kernel {name} was never "
+                              f"launched by process {rank} of ({key})")
+                launches[key] = {name: sum(c[name]
+                                           for c in panel_g["launches"])
+                                 for name in launches[key]}
             for name in NEEDS[key]:
                 check(launches[key][name] > 0, f"kernel {name} was never "
                       f"launched by main path ({key})")
@@ -2075,6 +2235,13 @@ def main():
             f"(f), first {len(first):,} pairs", f_data,
             {n: (None, [x for x in v if x in keep])
              for n, v in rec.recruited["out_f"].items()}, iter(first), rp)
+        g_data = check_panel_index("(g)", panel_g["db"],
+                                   [lc.name for lc in g_loci], rp,
+                                   panel_g["n_keys"])
+        check_against_host(
+            f"(g), all {len(g_reads[0]):,} pairs", g_data,
+            {n: (None, v) for n, v in rec.recruited["out_g"].items()},
+            zip(*g_reads), rp)
 
         if want_profile:
             profile_main_path("(b) HLA-scale locus, traced",

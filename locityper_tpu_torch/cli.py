@@ -6,7 +6,8 @@ command/mod.rs dispatcher).
 Subcommands: add, preproc, genotype, recruit, align, prune, paf-vcf, index.
 `--device` is the device the tensor code runs on: `cuda` (the default;
 raises when there is no CUDA device) or `cpu` (the plain PyTorch versions
-of the kernels).  Nothing picks the CPU by itself.
+of the kernels).  Nothing picks the CPU by itself.  Before it parses,
+`main` keeps freed host pages resident (`utils/malloc.py`).
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from .utils.logging import setup_logging
 
 def main(argv=None):
     setup_logging()
+    from .utils.malloc import tune_host_allocator
+    tune_host_allocator()
     parser = argparse.ArgumentParser(
         prog="locityper-tpu-torch",
         description="Targeted genotyper (Locityper method) on PyTorch/CUDA")

@@ -6,7 +6,9 @@ imports every module of `locityper_tpu_torch` and genotypes a tiny locus on
 sequential engine (`e=seq`), writing the called genotype's SAM file; another
 runs `python -m locityper_tpu_torch.cli --help` poisoned the same way; the
 sources of the package, of `chip_smoke.py` and of `time_minimizer_front.py`
-are also searched for such imports.
+are also searched for such imports.  Every `.py` file of the JAX package has
+its counterpart in the port: a file of the same relative path, or the CUDA
+sources (and wrapper) that do a Pallas file's work.
 """
 import pkgutil
 import re
@@ -222,3 +224,21 @@ def test_default_device_is_cuda_and_raises_without_one():
         recruit_reads({}, iter(()), RecruitParams())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         recruit_reads_fast({}, "a.fq", "b.fq", RecruitParams())
+
+
+#: JAX-package files whose work the port does in files of other names.
+COUNTERPARTS = {
+    "ops/align_pallas.py": ("ops/csrc/align_banded.cu",),
+    "ops/solver_pallas.py": ("ops/csrc/anneal_chains.cu",
+                             "ops/solver_chains.py"),
+}
+
+
+@pytest.mark.parametrize("rel", sorted(
+    p.relative_to(ROOT / "locityper_tpu").as_posix()
+    for p in (ROOT / "locityper_tpu").rglob("*.py")))
+def test_every_module_of_the_jax_package_has_its_counterpart(rel):
+    """Every `.py` file of the JAX package has a file of the same relative
+    path in the port, or the counterparts named in COUNTERPARTS."""
+    for other in COUNTERPARTS.get(rel, (rel,)):
+        assert (PKG / other).is_file(), f"{rel}: no {other} in the port"
