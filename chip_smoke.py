@@ -71,6 +71,34 @@ reference-default scheme) on simulated samples whose truth is known:
        must exit 0, split the loci 3 and 2 by the cost-weighted LPT rule,
        genotype each locus once, and call (g)'s genotypes; each process's
        wall seconds and launches are printed.
+  (h)  BASELINE.json config 3, a CYP2D6/CYP2D7-like locus: one locus of
+       5,000 bp, 8 haplotypes in 2 clades (2 % between clades, 0.3 %
+       within), and its paralog at 97 % identity (`sim.make_paralog`) 10 kb
+       downstream on one contig between random flanks of 20 kb; `add` sees
+       the whole contig, so the off-target k-mer counts see the paralog.
+       15x pairs from the true genotype, 2 x 15x from the paralog (both
+       sample copies) and 10x from the flanks; `genotype` (default scheme)
+       must call the truth, recruit reads of the paralog (else the sample
+       is no stress) and recruit the host engine's reads.
+  (h-P3) (h)'s database, reads from three distinct haplotypes at 15x each
+       plus the paralog and the flanks, `genotype -P 3`: the call must equal
+       the truth; the annealer's largest launches of this path are held
+       against the plain version (polish only whole, the stage-2 launch
+       with its schedule cut to 2,000 + 1,000 steps).
+  (h-P1) a haploid sample (tests/test_pipeline.py:147-162: both copies of
+       one haplotype) on (h)'s database, `genotype -P 1`, held the same way.
+  (h-w) (h)'s files with `--reg-weights`, every haplotype weighted 0.1 over
+       its middle half: the call must equal the truth, and the top
+       likelihood must differ from (h)'s.
+  (i)  BASELINE.json config 4's HiFi half: one locus of 16,384 bp with 4
+       haplotypes at 1.2 % divergence between flanks of 50 kb, HiFi-like
+       single reads of 15,000 +- 2,000 bases (0.1 % errors), 10x from each
+       haplotype of the true genotype and from each of two copies of the
+       flanks (one depth a copy), through `add`, `preproc --tech
+       hifi -b <the left flank> --max-reads 2000` and `genotype`; the call
+       must equal the truth and the recruited reads the host engine's; the
+       aligner's widest launches of `preproc` (band 48) and of `genotype`
+       (band 160) are held on 8 jobs each.
 
   (a-mesh) the files of (a') through `genotype` with
        `parallel.mesh.auto_mesh` returning a 2 x 2 grid of 4 shards on card
@@ -119,11 +147,15 @@ the same work (`bound_ms`); last, the contract line
 `{"ok": true, "device": {...}}`.  The annealer runs in two modes on the main
 path (Metropolis steps then polish, and polish only); its largest launch of
 each mode is held against the plain version, exactly, and timed, and the
-entry's `modes` carries both.  `align_banded` carries `long_rows`: its
-largest main-path launch on rows longer than 8,192 (sample (c)), where the
-reference package switches to a second, row-streamed TPU kernel and this
-port keeps launching the one kernel.  All three kernels were redesigned
-after their first port; the earlier design's time on the same launch
+entry's `modes` carries both, and (h-P3)'s and (h-P1)'s own launches at
+ploidy 3 and 1 (`polish_P3`, `anneal_P3`, `anneal_P1`; the anneal ones
+held with the schedule cut, `whole_ms` the kernel on the whole launch).
+`align_banded` carries `long_rows`: its largest main-path launch on rows
+longer than 8,192 outside (e) and (i) (sample (c)), where the reference
+package switches to a second, row-streamed TPU kernel and this port keeps
+launching the one kernel; `long_rows` also carries the 8 jobs held of
+(e)'s widest launch and of (i)'s in `preproc` and in `genotype`.  All
+three kernels were redesigned after their first port; the earlier design's time on the same launch
 (constants below, with their origin) is printed on the kernel's own line
 beside the time of this run, and is not part of the JSON line, which holds
 only what this run measured.  The annealer walks a
@@ -246,6 +278,11 @@ PANEL_HOST_PAIRS = 131_072      # (f): pairs held against the host engine
 HLA_LOCI = 5                    # (g): extra/hla_scale.py's defaults
 WORLD = 2                       # (g-2proc): processes on the one card
 WORLD_TIMEOUT = 900             # (g-2proc): seconds before they are killed
+PARALOG_LOCUS = 5000            # (h): the CYP2D6/CYP2D7-like locus, bp
+PARALOG_IDENTITY = 0.97         # (h): its paralog (sim.make_paralog)
+K2_CUT = (2000, 1000)           # (h-P3), (h-P1): anneal and polish steps of
+                                # the stage-2 launch held against plain
+HIFI_LOCUS = 16_384             # (i): bp
 
 
 class Failed(Exception):
@@ -482,6 +519,17 @@ def compare_anneal(chain_args, kw, what, timed=False):
                            n_steps=kw["n_steps"],
                            anneal_steps=kw["anneal_steps"],
                            plato=kw["plato"]))
+
+
+def cut_schedule(kw, anneal, polish):
+    """A launch's keywords with its schedule cut to `anneal` + `polish`
+    steps (the cooling over the first `anneal`) and its plateau scaled
+    alike: the plain version's time grows with the steps."""
+    n_steps = anneal + polish
+    plato = kw["plato"] * n_steps // max(kw["n_steps"], 1)
+    return dict(kw, n_steps=n_steps, anneal_steps=min(kw["anneal_steps"],
+                                                      anneal),
+                plato=max(plato, 1) if kw["plato"] else 0)
 
 
 def anneal_kw(cfg, attempts, n_steps, plato, seed):
@@ -1733,6 +1781,327 @@ def run_processes(what, tmp, loci, argv, out_name, calls):
     return launches
 
 
+# -- (h): a CYP2D6/CYP2D7-like paralog locus (BASELINE config 3) ------------
+
+def build_paralog_sample(rng):
+    """(h)'s world and samples.  One structured locus of PARALOG_LOCUS bp (2
+    clades of 4 haplotypes, 2 % between clades, 0.3 % within) and its
+    paralog (`sim.make_paralog` of the first haplotype at
+    PARALOG_IDENTITY), 10 kb downstream on one contig between random flanks
+    of 20 kb; reads of (h) (the true genotype), (h-P3) (three distinct
+    haplotypes) and (h-P1) (both copies of one haplotype), each with the
+    paralog and the flanks.  Returns a dict: locus, flanks, genome, truth
+    and reads by path."""
+    locus = sim.simulate_structured_locus(
+        rng, "CYP", length=PARALOG_LOCUS, n_clades=2, haps_per_clade=4,
+        clade_divergence=0.02, within_divergence=0.003)
+    paralog = sim.make_paralog(rng, locus.haplotypes[0],
+                               identity=PARALOG_IDENTITY)
+    flanks = [sim.random_genome(rng, n) for n in (20_000, 10_000, 20_000)]
+    genome = np.concatenate([flanks[0], locus.haplotypes[0], flanks[1],
+                             paralog, flanks[2]])
+    truth = {"h": locus.true_genotype,
+             "h-P3": tuple(sorted(rng.choice(len(locus.haplotypes), 3,
+                                             replace=False).tolist())),
+             "h-P1": (locus.true_genotype[0],)}
+    reads = {key: paralog_reads(rng, locus, paralog, flanks,
+                                haps if key != "h-P1" else haps * 2)
+             for key, haps in truth.items()}
+    return dict(locus=locus, flanks=flanks, genome=genome, truth=truth,
+                reads=reads)
+
+
+def paralog_reads(rng, locus, paralog, flanks, haps):
+    """Pairs from the haplotypes `haps` at DEPTH each, from both sample
+    copies of the paralog at DEPTH each, and 10x from the flanks, with
+    (a)'s error model; named `hap*`, `para*` and `flank*`."""
+    err = sim.ErrorModel(0.002, 0.0002, 0.0002)
+    pools = [
+        sim.simulate_paired_reads(rng, [locus.haplotypes[i] for i in haps],
+                                  depth=DEPTH, errors=err, prefix="hap"),
+        sim.simulate_paired_reads(rng, [paralog, paralog], depth=DEPTH,
+                                  errors=err, prefix="para"),
+        sim.simulate_paired_reads(rng, flanks, depth=10.0, errors=err,
+                                  prefix="flank")]
+    return tuple([x for p in pools for x in getattr(p, f)]
+                 for f in ("names", "reads1", "reads2"))
+
+
+def add_one_locus(what, tmp, locus, genome, start, device_args=()):
+    """`add` of one locus whose first haplotype sits in `genome` at
+    `start`, with the whole contig as the reference (so that its k-mer
+    counts see every copy); returns (database, seconds)."""
+    ref, bed = write_locus_files(what, tmp, [locus], genome, [start])
+    t0 = time.perf_counter()
+    rc = cli.main([*device_args, "add", "-d", str(tmp / "db"), "-r",
+                   str(ref), "-l", str(bed), "-s", str(tmp / "haps_{}.fa")])
+    check(rc == 0, f"{what}: add returned {rc}")
+    return tmp / "db", time.perf_counter() - t0
+
+
+def run_locus_genotype(what, tmp, locus, fq, out_name, truth, extra=(),
+                       device_args=()):
+    """`genotype` of one locus from `fq` with the database and background
+    in `tmp`, default scheme; the call must name the haplotypes `truth`.
+    Returns (seconds, res.json.gz, peak device memory in MiB)."""
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main([*device_args, "genotype", "-i", *map(str, fq), "-d",
+                   str(tmp / "db"), "-p", str(tmp / "sample"), "-o",
+                   str(tmp / out_name), "--seed", "1", *extra])
+    sync()
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"{what}: genotype returned {rc}")
+    with gzip.open(paths.locus_dir(tmp / out_name, locus.name)
+                   / paths.RES_JSON, "rt") as f:
+        res = json.load(f)
+    want = sorted(locus.hap_names[i] for i in truth)
+    check(sorted(res["genotype"].split(",")) == want,
+          f"{what}: called {res['genotype']}, truth {want}")
+    check(np.isfinite(res["quality"])
+          and np.isfinite(res["options"][0]["lik_mean"]),
+          f"{what}: non-finite result")
+    peak = (torch.cuda.max_memory_allocated() / 2**20
+            if torch.cuda.is_available() else float("nan"))
+    return secs, res, peak
+
+
+def run_h_path(tmp, hw, rec, device_args=()):
+    """(h): `add` of the paralog locus, the saved background, every
+    sample's FASTQ files, then `genotype` of (h); some reads of the paralog
+    must be recruited."""
+    tmp.mkdir()
+    locus = hw["locus"]
+    hw["db"], t_add = add_one_locus("(h)", tmp, locus, hw["genome"],
+                                    hw["flanks"][0].size, device_args)
+    paths.bg_dir(tmp / "sample").mkdir(parents=True)
+    make_bg().save(paths.bg_dir(tmp / "sample") / paths.BG_DISTR)
+    hw["fq"] = {}
+    for key, reads in hw["reads"].items():
+        (tmp / key).mkdir()
+        hw["fq"][key] = write_fastq_pair(tmp / key, *reads)
+    secs, hw["res"], peak = run_locus_genotype(
+        "(h)", tmp, locus, hw["fq"]["h"], "out_h", hw["truth"]["h"],
+        device_args=device_args)
+    names = rec.recruited["out_h"][locus.name]
+    n_para = sum(n.startswith("para") for n in names)
+    check(n_para > 0, "(h): no read of the paralog was recruited")
+    print(f"main path (h) paralog locus, command line: add {t_add:.2f} s, "
+          f"genotype {secs:.2f} s; {len(names)} of "
+          f"{len(hw['reads']['h'][0])} pairs recruited, {n_para} of them "
+          f"from the paralog; 1/1 res.json.gz names the truth "
+          f"{hw['res']['genotype']} (quality {hw['res']['quality']:.1f}); "
+          f"peak device memory {peak:.0f} MiB; launches "
+          f"{dict(_kernels.LAUNCHES)}", flush=True)
+
+
+def run_h_ploidy_path(key, ploidy, tmp, hw, rec, device_args=()):
+    """(h-P3), (h-P1): `genotype -P <ploidy>` on (h)'s database."""
+    locus = hw["locus"]
+    secs, res, peak = run_locus_genotype(
+        f"({key})", tmp, locus, hw["fq"][key], f"out_{key}",
+        hw["truth"][key], extra=["-P", str(ploidy)],
+        device_args=device_args)
+    check(res["genotype"].count(",") == ploidy - 1,
+          f"({key}): called {res['genotype']}")
+    print(f"main path ({key}) paralog locus, command line: genotype -P "
+          f"{ploidy} {secs:.2f} s; "
+          f"{len(rec.recruited[f'out_{key}'][locus.name])} of "
+          f"{len(hw['reads'][key][0])} pairs recruited; 1/1 res.json.gz "
+          f"names the truth {res['genotype']} (quality "
+          f"{res['quality']:.1f}); peak device memory {peak:.0f} MiB; "
+          f"launches {dict(_kernels.LAUNCHES)}", flush=True)
+
+
+def run_h_w_path(tmp, hw, device_args=()):
+    """(h-w): (h)'s files with `--reg-weights`; the top likelihood must
+    differ from (h)'s."""
+    mapping = write_reg_weights(tmp, hw["locus"])
+    secs, res, peak = run_locus_genotype(
+        "(h-w)", tmp, hw["locus"], hw["fq"]["h"], "out_h-w",
+        hw["truth"]["h"], extra=["--reg-weights", str(mapping)],
+        device_args=device_args)
+    lik, lik_h = (r["options"][0]["lik_mean"] for r in (res, hw["res"]))
+    check(lik != lik_h, f"(h-w): top likelihood {lik} equals (h)'s: the "
+          "weights were not applied")
+    print(f"main path (h-w) paralog locus, command line: genotype "
+          f"--reg-weights {secs:.2f} s; 1/1 res.json.gz names the truth; "
+          f"top lik_mean {lik:.4f} (log10; (h) {lik_h:.4f}); peak device "
+          f"memory {peak:.0f} MiB; launches {dict(_kernels.LAUNCHES)}",
+          flush=True)
+
+
+def write_reg_weights(tmp, locus, weight=0.1):
+    """(h-w)'s `--reg-weights` mapping: every haplotype weighted `weight`
+    over its middle half, a stretch that it shares with the paralog."""
+    lo, hi = PARALOG_LOCUS // 4, 3 * PARALOG_LOCUS // 4
+    bed = tmp / "weights.bed"
+    bed.write_text("".join(f"{name}\t{lo}\t{hi}\t{weight}\n"
+                           for name in locus.hap_names))
+    mapping = tmp / "weights.tsv"
+    mapping.write_text(f"{locus.name}\t{bed.name}\n")
+    return mapping
+
+
+# -- (i): HiFi reads through add, preproc --tech hifi and genotype ----------
+
+def build_hifi_sample(rng, locus_len=HIFI_LOCUS, flank=50_000,
+                      read_len=(15_000, 2_000), depth=10.0):
+    """One locus of `locus_len` bp (4 haplotypes, 1.2 % divergence) between
+    random flanks of `flank`; HiFi-like single reads of `read_len` (mean,
+    sd) with 0.1 % errors, at `depth` from each haplotype of the true
+    genotype and from each of the sample's two copies of the flanks, so
+    that the background region and the locus have one depth a copy.
+    Returns a dict: locus, genome, reads ((names, sequences))."""
+    locus = sim.simulate_locus(rng, "HIFI", length=locus_len, n_haps=4,
+                               divergence=0.012)
+    left, right = sim.random_genome(rng, flank), sim.random_genome(rng, flank)
+    genome = np.concatenate([left, locus.haplotypes[0], right])
+    err = sim.ErrorModel(mismatch=0.0006, insertion=0.0002, deletion=0.0002)
+    pools = [
+        sim.simulate_single_reads(
+            rng, [locus.haplotypes[i] for i in locus.true_genotype],
+            depth=depth, read_len_mean=read_len[0], read_len_sd=read_len[1],
+            errors=err, prefix="hifi"),
+        sim.simulate_single_reads(
+            rng, [left, right] * 2, depth=depth, read_len_mean=read_len[0],
+            read_len_sd=read_len[1], errors=err, prefix="bg")]
+    return dict(locus=locus, genome=genome,
+                reads=([n for p in pools for n in p.names],
+                       [r for p in pools for r in p.reads1]))
+
+
+def run_hifi_path(tmp, iw, rec, device_args=()):
+    """(i): `add`, `preproc --tech hifi -b <the left flank> --max-reads
+    2000` and `genotype` through the command line; the call must equal the
+    truth.  The recorder's phase is `preproc` during `preproc`, so that
+    its widest launches are kept apart from those of `genotype`."""
+    tmp.mkdir()
+    locus, genome, reads = iw["locus"], iw["genome"], iw["reads"]
+    flank = (genome.size - locus.haplotypes[0].size) // 2
+    fq = tmp / "hifi.fq.gz"
+    with gzip.open(fq, "wt", compresslevel=1) as f:
+        for name, seq in zip(*reads):
+            fastx.write_fastq(f, fastx.Read(name, seq))
+    iw["db"], t_add = add_one_locus("(i)", tmp, locus, genome, flank,
+                                    device_args)
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    rec.phase = "preproc"
+    t0 = time.perf_counter()
+    with LogLines() as log:
+        rc = cli.main([*device_args, "preproc", "-i", str(fq), "-r",
+                       str(tmp / "ref.fa"), "-o", str(tmp / "sample"),
+                       "--tech", "hifi", "-b", f"chr1:1-{flank}",
+                       "--max-reads", "2000"])
+    sync()
+    t_pre = time.perf_counter() - t0
+    rec.phase = None
+    check(rc == 0, f"(i): preproc returned {rc}")
+    recruited = int(log.find(r"Recruited (\d+) read"))
+    bg = BgDistr.load(paths.bg_dir(tmp / "sample") / paths.BG_DISTR)
+    check(bg.seq_info.technology == Technology.HIFI,
+          f"(i): preproc wrote technology {bg.seq_info.technology}")
+    secs, res, peak = run_locus_genotype("(i)", tmp, locus, [fq], "out_i",
+                                         locus.true_genotype,
+                                         device_args=device_args)
+    print(f"main path (i) HiFi, command line: add, preproc --tech hifi, "
+          f"genotype: {len(reads[0])} reads, "
+          f"{sum(r.size for r in reads[1]):,} bases, longest "
+          f"{max(r.size for r in reads[1]):,}; add {t_add:.2f} s, preproc "
+          f"{t_pre:.2f} s ({recruited} reads recruited to the background "
+          f"region; read length {bg.seq_info.read_len:.0f}, mismatches "
+          f"{100 * float(np.exp(bg.err_prof.ln_mismatch)):.4f} %), genotype "
+          f"{secs:.2f} s; {len(rec.recruited['out_i'][locus.name])} reads "
+          f"recruited, 1/1 res.json.gz names the truth {res['genotype']} "
+          f"(quality {res['quality']:.1f}); peak device memory {peak:.0f} "
+          f"MiB; launches {dict(_kernels.LAUNCHES)}", flush=True)
+
+
+def check_h_i_recruitment(hw, iw, rec, rp):
+    """(h)'s and (i)'s recruited reads against the host engine's."""
+    locus = hw["locus"]
+    check_against_host(
+        f"(h), all {len(hw['reads']['h'][0]):,} pairs",
+        {locus.name: G.load_locus(hw["db"], locus.name)},
+        {n: (None, v) for n, v in rec.recruited["out_h"].items()},
+        zip(*hw["reads"]["h"]), rp)
+    locus = iw["locus"]
+    check_against_host(
+        f"(i), all {len(iw['reads'][0])} reads",
+        {locus.name: G.load_locus(iw["db"], locus.name)},
+        {n: (None, v) for n, v in rec.recruited["out_i"].items()},
+        ((n, r, None) for n, r in zip(*iw["reads"])),
+        RecruitParams(match_frac=Technology.HIFI.default_match_frac(False),
+                      match_length=2000), ordered=False)
+
+
+def hold_ploidy_launches(rec):
+    """(h-P3) and (h-P1): the annealer at ploidy 3 and 1, K = P Kh + 1 slots
+    (or the cap k_eff) and W = 2 + P max_windows windows, each mode's
+    largest launch of the path against the plain version: polish only
+    whole, the stage-2 launch with its schedule cut to K2_CUT (and the
+    kernel timed on the whole of it).  (h-P1)'s 8 genotypes skip the greedy
+    stage, so it has no polish-only launch.  Returns {mode_P<p>: numbers}."""
+    held = {}
+    for key, ploidy, modes in (("h-P3", 3, ("polish", "anneal")),
+                               ("h-P1", 1, ("anneal",))):
+        for mode in modes:
+            check((key, mode) in rec.anneal_by_path,
+                  f"({key}): no {mode} launch of anneal_chains")
+            args, kw, _ = rec.anneal_by_path[(key, mode)]
+            what, whole = f"({key}) {mode} launch", ""
+            whole_ms = None
+            if mode == "anneal":
+                whole_ms = time_ms(lambda: SC.anneal_chains(*args, **kw))
+                whole = (f"; the whole launch ({kw['n_steps']:,} steps) "
+                         f"{whole_ms:.3f} ms")
+                kw = cut_schedule(kw, *K2_CUT)
+                what += f", cut to {K2_CUT[0]:,} + {K2_CUT[1]:,} steps"
+            m = compare_anneal(args, kw, what, timed=True)
+            m["whole_ms"] = whole_ms
+            held[f"{mode}_P{ploidy}"] = m
+            print(f"{what} of anneal_chains {m['shape']}: equals plain "
+                  f"exactly; {m['moves']} moves proposed, "
+                  f"{m['rounds_per_batch']:.2f} evaluation rounds a batch; "
+                  f"{m['ms']:.3f} ms (plain {m['plain_ms']:.0f} ms, bound "
+                  f"{m['bound_ms']:.4f} ms by {m['bound_by']}){whole}",
+                  flush=True)
+    return held
+
+
+def hold_hifi_launches(rec):
+    """(i): K1 on the widest launch of `preproc --tech hifi` (band 48: the
+    background estimation aligns at band 48 whatever the technology, in
+    the JAX package too) and of its `genotype` (band 160), each on 8 of its
+    jobs longer than LONG_ROWS.  Returns {path: numbers}."""
+    held = {}
+    for key, want_band in (("i-preproc", 48), ("i", 160)):
+        check((key, "align") in rec.widest,
+              f"({key}): no launch of align_banded")
+        reads, lens, wins, svec, band = rec.widest[(key, "align")]
+        pick = longest_jobs(lens, LONG_ROWS)
+        check(band == want_band and pick.numel() > 0,
+              f"({key}): widest launch at band {band}, {pick.numel()} jobs "
+              f"with reads longer than {LONG_ROWS:,}")
+        m = compare_align(reads[pick], lens[pick], wins[pick], svec, band,
+                          f"({key}) widest launch")
+        whole_ms = time_ms(lambda: A.align_banded(reads, lens, wins, svec,
+                                                  band))
+        whole_bound, whole_by = align_bound_ms(reads, lens, wins, band)
+        held[key] = m
+        print(f"({key}) widest launch of align_banded {list(reads.shape)} "
+              f"[N, L], band {band}, longest read {int(lens.max()):,}: "
+              f"{whole_ms:.3f} ms (bound {whole_bound:.4f} ms by "
+              f"{whole_by}); {pick.numel()} of its jobs with reads of "
+              f"{int(lens[pick].min()):,} to {int(lens[pick].max()):,} "
+              f"bases: all 8 outputs bit-identical, {m['ms']:.3f} ms (plain "
+              f"{m['plain_ms']:.0f} ms, bound {m['bound_ms']:.4f} ms by "
+              f"{m['bound_by']})", flush=True)
+    return held
+
+
 class LogLines(logging.Handler):
     """Collects the messages of the package's loggers while in use."""
 
@@ -1813,21 +2182,23 @@ def profile_host(what, run, top=14):
 
 class Recorder:
     """Keeps the inputs of the largest launch of each kernel on the main
-    path (for the annealer: of each of its two modes; for the aligner: of
-    its largest launch on rows of at most LONG_ROWS, and of its largest on
-    longer rows outside (e); for the minimizer front end: of each of its
-    two entries), to hold the kernel against its plain version and time it
-    afterwards on inputs the path really gave it.  (e)'s launches are kept
-    apart, by width (`widest`): the plain aligner walks every row of the
-    longest read it is given, 99 s for (e)'s widest launch, so (e) is held
-    on 8 jobs of it."""
+    path (for the annealer: of each of its two modes by path;
+    for the aligner: of its largest launch on rows of at most LONG_ROWS,
+    and of its largest on longer rows outside (e); for the minimizer front
+    end: of each of its two entries), to hold the kernel against its plain
+    version and time it afterwards on inputs the path really gave it.  The
+    widest launch of each kernel is also kept by path, and by phase where
+    one is set (`widest`): the plain aligner walks every row of the longest
+    read it is given, 99 s for (e)'s widest launch, so (e) and (i) are held
+    on 8 jobs of theirs and kept out of the long-row launch."""
 
     def __init__(self):
         self.align = None
         self.align_long = None
         self.n_align_long = {}          # path -> launches on long rows
         self.path = None
-        self.anneal = {}                # mode -> (args, kw, size)
+        self.phase = None               # a part of the path kept apart
+        self.anneal_by_path = {}        # (path, mode) -> (args, kw, size)
         self.front = {}                 # entry -> (reads, k, w, S)
         self.widest = {}                # (path, kernel) -> widest launch
         self.greedy_iters = {}          # path -> [iterations of its chains]
@@ -1840,10 +2211,19 @@ class Recorder:
         self._greedy_chain = SQ._greedy_chain
 
     def _keep_widest(self, kernel, reads, args):
-        key = (self.path, kernel)
+        key = (self.path if self.phase is None
+               else f"{self.path}-{self.phase}", kernel)
         if key not in self.widest \
                 or reads.shape[1] > self.widest[key][0].shape[1]:
             self.widest[key] = args
+
+    def largest_anneal(self):
+        """mode -> (args, kw, size) of its largest launch on any path."""
+        out = {}
+        for (_, mode), launch in self.anneal_by_path.items():
+            if mode not in out or launch[2] > out[mode][2]:
+                out[mode] = launch
+        return out
 
     def __enter__(self):
         def align_banded(reads, rlens, hap_wins, score_vec, band=48,
@@ -1858,7 +2238,7 @@ class Recorder:
             if reads.shape[1] > LONG_ROWS and reads.shape[0]:
                 self.n_align_long[self.path] = \
                     self.n_align_long.get(self.path, 0) + 1
-                if self.path != "e" and (
+                if self.path not in ("e", "i") and (
                         self.align_long is None
                         or reads.numel() > self.align_long[0].numel()):
                     self.align_long = args
@@ -1868,8 +2248,10 @@ class Recorder:
         def anneal_chains(*args, **kw):
             size = args[1].numel() * kw["n_steps"]
             mode = "anneal" if kw["anneal_steps"] > 0 else "polish"
-            if mode not in self.anneal or size > self.anneal[mode][2]:
-                self.anneal[mode] = (args, kw, size)
+            key = (self.path, mode)
+            if key not in self.anneal_by_path \
+                    or size > self.anneal_by_path[key][2]:
+                self.anneal_by_path[key] = (args, kw, size)
             return self._anneal_chains(*args, **kw)
 
         def minimizer_front(reads, k, w, S=None):
@@ -1921,7 +2303,12 @@ NEEDS = {"a": ("align_banded", "anneal_chains", FRONT[0]),
          "e": ("align_banded", "anneal_chains", FRONT[1]),
          "f": ("align_banded", "anneal_chains", FRONT[0]),
          "g": ("align_banded", "anneal_chains", FRONT[0]),
-         "g_2proc": ("align_banded", "anneal_chains", FRONT[0])}
+         "g_2proc": ("align_banded", "anneal_chains", FRONT[0]),
+         "h": ("align_banded", "anneal_chains", FRONT[0]),
+         "h-P3": ("align_banded", "anneal_chains", FRONT[0]),
+         "h-P1": ("align_banded", "anneal_chains", FRONT[0]),
+         "h-w": ("align_banded", "anneal_chains", FRONT[0]),
+         "i": ("align_banded", "anneal_chains", FRONT[1])}
 #: kernels that a sample must not launch: (a-seq) and (a-batched) solve
 #: with the sequential and the batched-move engines, which have no kernel of
 #: their own
@@ -2052,6 +2439,18 @@ def main():
     g_loci, g_genome, g_reads = build_hla_panel(np.random.default_rng(0))
     print(f"sample (g): {len(g_loci)} loci x {len(g_loci[0].haplotypes)} "
           f"haplotypes, {len(g_reads[0])} pairs built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    hw = build_paralog_sample(np.random.default_rng(0))
+    iw = build_hifi_sample(np.random.default_rng(0))
+    print(f"samples (h) and (i): one locus of {PARALOG_LOCUS:,} bp x "
+          f"{len(hw['locus'].haplotypes)} haplotypes and its paralog at "
+          f"{PARALOG_IDENTITY:.0%} identity, "
+          + ", ".join(f"({k}) {len(r[0])} pairs"
+                      for k, r in hw["reads"].items())
+          + f"; one locus of {HIFI_LOCUS:,} bp x 4 haplotypes, "
+          f"{len(iw['reads'][0])} HiFi-like reads; built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     bg, bg_long = make_bg(), make_bg_long()
@@ -2187,7 +2586,15 @@ def main():
                      ("a_mesh", run_mesh), ("a_batched", run_batched),
                      ("b", run_b), ("b_mesh", run_b_mesh), ("c", run_c),
                      ("d", run_d), ("f", run_f), ("g", run_g),
-                     ("g_2proc", run_g_2proc), ("e", run_e)]
+                     ("g_2proc", run_g_2proc),
+                     ("h", lambda: run_h_path(tmp / "h", hw, rec)),
+                     ("h-P3", lambda: run_h_ploidy_path(
+                         "h-P3", 3, tmp / "h", hw, rec)),
+                     ("h-P1", lambda: run_h_ploidy_path(
+                         "h-P1", 1, tmp / "h", hw, rec)),
+                     ("h-w", lambda: run_h_w_path(tmp / "h", hw)),
+                     ("i", lambda: run_hifi_path(tmp / "i", iw, rec)),
+                     ("e", run_e)]
         if cards_grid is not None:
             paths_run.insert(4, ("a_mesh_cards", run_mesh_cards))
         recruited = {}
@@ -2242,6 +2649,7 @@ def main():
             f"(g), all {len(g_reads[0]):,} pairs", g_data,
             {n: (None, v) for n, v in rec.recruited["out_g"].items()},
             zip(*g_reads), rp)
+        check_h_i_recruitment(hw, iw, rec, rp)
 
         if want_profile:
             profile_main_path("(b) HLA-scale locus, traced",
@@ -2314,10 +2722,11 @@ def main():
           f"all outputs bit-identical; {k5e['ms']:.4f} ms (plain "
           f"{k5e['plain_ms']:.0f} ms, bound {k5e['bound_ms']:.4f} ms by "
           f"{k5e['bound_by']})", flush=True)
-    check(set(rec.anneal) == {"anneal", "polish"},
-          f"annealer modes on the main path: {sorted(rec.anneal)}")
+    largest = rec.largest_anneal()
+    check(set(largest) == {"anneal", "polish"},
+          f"annealer modes on the main path: {sorted(largest)}")
     k2_modes = {}
-    for mode, (args, kw, _) in rec.anneal.items():
+    for mode, (args, kw, _) in largest.items():
         m = compare_anneal(args, kw, f"main-path {mode} launch", timed=True)
         k2_modes[mode] = m
         print(f"main-path {mode} launch of anneal_chains {m['shape']}: "
@@ -2330,6 +2739,9 @@ def main():
               f"{m['moves'] / m['ms'] * 1e3:.3e} moves/s "
               f"(plain {m['plain_ms']:.0f} ms, bound {m['bound_ms']:.4f} ms "
               f"by {m['bound_by']})", flush=True)
+
+    k2_ploidy = hold_ploidy_launches(rec)
+    k1i = hold_hifi_launches(rec)
 
     def launch_size(mode):
         shape = k2_modes[mode]["shape"]
@@ -2366,7 +2778,9 @@ def main():
 
     long_rows = entry("align_banded", ["align_banded"], "align_banded.cu",
                       "locityper_tpu/ops/align_pallas.py:301", k4,
-                      rows_over_65536=numbers(k1e))
+                      rows_over_65536=numbers(k1e),
+                      hifi_preproc=numbers(k1i["i-preproc"]),
+                      hifi_genotype=numbers(k1i["i"]))
     long_rows["launches_by_path"] = {key: rec.n_align_long.get(key, 0)
                                      for key in launches}
     long_rows["launches"] = sum(long_rows["launches_by_path"].values())
@@ -2379,8 +2793,10 @@ def main():
               rounds_per_batch=k2["rounds_per_batch"],
               modes={mode: dict(
                   numbers(m), moves=m["moves"],
-                  rounds_per_batch=m["rounds_per_batch"])
-                  for mode, m in k2_modes.items()}),
+                  rounds_per_batch=m["rounds_per_batch"],
+                  **({"whole_ms": m["whole_ms"]}
+                     if m.get("whole_ms") is not None else {}))
+                  for mode, m in {**k2_modes, **k2_ploidy}.items()}),
         entry("minimizer_front", FRONT, "minimizer_front.cu",
               "locityper_tpu/ops/recruit.py:358", k3["compact"],
               entries={

@@ -35,6 +35,7 @@ def world(tmp_path_factory):
 @pytest.mark.parametrize("name,extra", [
     ("max_reads", ["--max-reads", "1500"]),
     ("subsample", ["--subsample", "0.1", "--seed", "3"]),
+    ("ploidy", ["--ploidy", "4"]),
 ])
 def test_read_selection_equal(world, name, extra):
     j_json, t_json = run_both(world, name, "-b", REGION, *extra)
