@@ -100,6 +100,34 @@ reference-default scheme) on simulated samples whose truth is known:
        aligner's widest launches of `preproc` (band 48) and of `genotype`
        (band 160) are held on 8 jobs each.
 
+  (j)  (d)'s contig, loci and pairs as users hold a WGS sample: a
+       coordinate-sorted CRAM against (d)'s ref.fa and its BAM twin, each
+       mate at its place on the contig (a pair of a locus at the locus's
+       start plus its offset in the haplotype), the fragment's reverse end
+       with flag 0x10 in contig orientation, one in ten pairs of the loci
+       unmapped at the end; both indexed by the port's `index`.  `preproc
+       -a wgs.cram -r ref.fa` fetches (d)'s background region through the
+       .crai (its estimates within (d)'s bounds); `genotype -i wgs.cram -r
+       ref.fa` fetches the loci's padded regions and the unplaced tail:
+       every call must equal the truth, the recruited reads the host
+       engine's over the same fetched stream and include unplaced pairs;
+       `genotype -i wgs.bam -r ref.fa --stop-after recruit` must recruit
+       the same reads.
+  (a-m16) the files of (a') through `genotype -m 16,10`: 32-bit k-mers in
+       the front end; every call must equal the truth and (a')'s, and the
+       largest k = 16 launch of the front end is held against the plain
+       version and timed.
+  (a-priors) the same through `genotype --priors`: for each locus the
+       truth, two other genotypes and one at -inf; every call must equal
+       the truth and (a')'s, and the options listed be the file's finite
+       genotypes.
+  (a-knobs) the same through `genotype` with the model knobs (`-A 0.5 2 3
+       -U -8 --tweak 40 --min-weight 0.01 --kmers-weight 0.3,3
+       --compl-weight 0.4,3 --read-kmers 1,6`), then with the filter knobs
+       and the debug files (`--filt-diff 50 --prob-thresh -3 --dont-skip
+       --debug 2`): every call must equal the truth and (a')'s, and the
+       three debug files exist for every locus.
+
   (a-mesh) the files of (a') through `genotype` with
        `parallel.mesh.auto_mesh` returning a 2 x 2 grid of 4 shards on card
        0 (restored afterwards): recruitment, alignment and both solver
@@ -164,7 +192,9 @@ earlier move of the batch disturbs: the mean number of evaluation rounds a
 batch (`rounds_per_batch`, 1 to 32) is printed with each timed launch.
 `minimizer_front` is one source with two entries, `compact` and `full`;
 each is a launch count of its own and the kernel entry's `entries` carries
-both.
+both.  The main path's launches at k = 15 give `compact`'s numbers;
+(a-m16)'s largest launch at k = 16 is held and timed apart, as `compact`'s
+`k16` (with its launch count).
 
 How `bound_ms` is counted.  It is the larger of bytes / 3.35e12 B/s and
 operations / 67e12 op/s (H100 SXM: HBM3 rate and float32 rate outside the
@@ -208,6 +238,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import namedtuple
 from pathlib import Path
 
 import numpy as np
@@ -239,6 +270,7 @@ from locityper_tpu_torch.seq import bam as tbam
 from locityper_tpu_torch.seq import fastx
 from locityper_tpu_torch.seq.contigs import ContigSet
 from locityper_tpu_torch.seq.counts import GenomeKmerCounter, off_target_counts
+from locityper_tpu_torch.seq.cram import CramWriter
 from locityper_tpu_torch.seq.recruit import RecruitParams, TargetIndex
 from locityper_tpu_torch.solvers import ilp
 from locityper_tpu_torch.solvers.solve import (Scheme, _unpermute_assignments,
@@ -283,6 +315,13 @@ PARALOG_IDENTITY = 0.97         # (h): its paralog (sim.make_paralog)
 K2_CUT = (2000, 1000)           # (h-P3), (h-P1): anneal and polish steps of
                                 # the stage-2 launch held against plain
 HIFI_LOCUS = 16_384             # (i): bp
+UNPLACED_EVERY = 10             # (j): one in this many locus pairs unmapped
+MODEL_KNOBS = ["-A", "0.5", "2", "3", "-U", "-8", "--tweak", "40",
+               "--min-weight", "0.01", "--kmers-weight", "0.3,3",
+               "--compl-weight", "0.4,3", "--read-kmers", "1,6"]
+FILTER_KNOBS = ["--filt-diff", "50", "--prob-thresh", "-3", "--dont-skip",
+                "--debug", "2"]
+DEBUG_FILES = ("windows.bed.gz", "sol.csv.gz", "read_pairs.csv.gz")
 
 
 class Failed(Exception):
@@ -805,13 +844,15 @@ def phase_front():
     # Other parameters, a truncating S, S past the row, one short row; the
     # edges of the kernel's schedule: fewer rows than a block of 4 warps, an
     # S cut inside a later chunk of 256 positions, rows of no multiple of
-    # 16 bytes, the largest w (past 48 KB of shared memory a block).
+    # 16 bytes, the largest w (past 48 KB of shared memory a block); k = 16,
+    # whose k-mers fill the 32-bit word.
     further = ((999, 152, 15, 10, 8), (999, 152, 11, 5, None),
                (999, 152, 7, 1, 160), (1, 15, 15, 10, 4),
                (77, 3001, 15, 40, None), (77, 3001, 13, 63, 900),
                (5, 200, 15, 10, 20), (333, 1000, 15, 10, 100),
                (129, 1001, 13, 12, 64), (9, 2000, 15, 1024, 30),
-               (9, 2000, 15, 1024, None))
+               (9, 2000, 15, 1024, None), (999, 152, 16, 10, None),
+               (333, 1000, 16, 10, 100), (1, 16, 16, 10, 4))
     for B, L, k, w, S in further:
         compare_front(make_reads(B + L + w, B, L, 0.01), k, w, S,
                       f"{B}x{L} k={k} w={w} S={S}")
@@ -1441,11 +1482,13 @@ def sample_pairs(rng, copies, depth, sub_rate, read_len=150,
     `depth` (per copy): fragment lengths N(insert_mean, insert_sd), mate 1
     from the fragment's start, mate 2 the reverse complement of its end, the
     mates swapped in half of the pairs, substitutions at `sub_rate`.  One
-    gather per copy.  Returns ([N, read_len] int8, the same) in a random
-    order."""
-    firsts, seconds = [], []
+    gather per copy.  Returns ([N, read_len] int8, the same, frags) in a
+    random order; `frags` holds [N] arrays of where each pair was drawn:
+    `copy` (its index in `copies`), `start` and `ins` (the fragment) and
+    `swap` (mate 1 is the reverse complement of the fragment's end)."""
+    firsts, seconds, frags = [], [], []
     ar = np.arange(read_len)
-    for seq in copies:
+    for c, seq in enumerate(copies):
         n = int(depth * seq.size / (2 * read_len) + 0.5)
         ins = np.clip(np.rint(rng.normal(insert_mean, insert_sd, n)),
                       read_len, seq.size).astype(np.int64)
@@ -1459,8 +1502,11 @@ def sample_pairs(rng, copies, depth, sub_rate, read_len=150,
             m[sub] = (m[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
         firsts.append(m1)
         seconds.append(m2)
+        frags.append((np.full(n, c), start, ins, swap))
     order = rng.permutation(sum(m.shape[0] for m in firsts))
-    return np.concatenate(firsts)[order], np.concatenate(seconds)[order]
+    return (np.concatenate(firsts)[order], np.concatenate(seconds)[order],
+            {key: np.concatenate([f[i] for f in frags])[order]
+             for i, key in enumerate(("copy", "start", "ins", "swap"))})
 
 
 def write_fastq_arrays(path, reads, prefix, mode="wb"):
@@ -1482,6 +1528,24 @@ def write_fastq_arrays(path, reads, prefix, mode="wb"):
         f.write(rec.tobytes())
 
 
+def check_wgs_estimates(what, bg):
+    """`preproc`'s estimates of (d)'s sample near the simulated values;
+    returns (insert mean, depth, mismatch rate)."""
+    insert = bg.insert_distr.distr.mean()
+    d = bg.depth.depth_distribution(41)
+    depth = d.mean() * 2 * 2 * 150.0 / bg.depth.window_size
+    mism = float(np.exp(bg.err_prof.ln_mismatch))
+    check(abs(insert / 400.0 - 1) <= 0.05,
+          f"{what}: estimated insert mean {insert:.1f}, simulated 400")
+    check(abs(depth / (2 * WGS_DEPTH) - 1) <= 0.25,
+          f"{what}: estimated depth {depth:.2f}x, simulated "
+          f"{2 * WGS_DEPTH}x")
+    check(0.5 <= mism / WGS_SUB_RATE <= 2.0,
+          f"{what}: estimated mismatch rate {mism:.5f}, simulated "
+          f"{WGS_SUB_RATE}")
+    return insert, depth, mism
+
+
 def run_wgs_path(what, tmp, loci, rng, contig_len=WGS_CONTIG,
                  locus_gap=WGS_LOCUS_GAP, device_args=()):
     """`add`, `preproc` and `genotype` through the command line on a
@@ -1494,14 +1558,22 @@ def run_wgs_path(what, tmp, loci, rng, contig_len=WGS_CONTIG,
     starts = [locus_gap * (i + 1) for i in range(len(loci))]
     for lc, pos in zip(loci, starts):
         genome[pos:pos + lc.haplotypes[0].size] = lc.haplotypes[0]
-    copies = []
+    copies, layouts = [], []
     for c in range(2):
-        parts, prev = [], 0
+        parts, places, prev = [], [], 0
         for lc, pos in zip(loci, starts):
             parts += [genome[prev:pos], lc.haplotypes[lc.true_genotype[c]]]
+            places += [(prev, pos - prev, False),
+                       (pos, lc.haplotypes[0].size, True)]
             prev = pos + lc.haplotypes[0].size
-        copies.append(np.concatenate(parts + [genome[prev:]]))
-    reads1, reads2 = sample_pairs(rng, copies, WGS_DEPTH, WGS_SUB_RATE)
+        parts.append(genome[prev:])
+        places.append((prev, genome.size - prev, False))
+        copies.append(np.concatenate(parts))
+        layouts.append(CopyLayout(
+            np.cumsum([0] + [p.size for p in parts[:-1]]),
+            *map(np.array, zip(*places))))
+    reads1, reads2, frags = sample_pairs(rng, copies, WGS_DEPTH,
+                                         WGS_SUB_RATE)
     t1 = time.perf_counter()
     fq1, fq2 = tmp / "wgs_1.fq.gz", tmp / "wgs_2.fq.gz"
     write_fastq_arrays(fq1, reads1, "w")
@@ -1536,18 +1608,7 @@ def run_wgs_path(what, tmp, loci, rng, contig_len=WGS_CONTIG,
                                           "Preprocessing done")]
     legs = " / ".join(f"{b - a:.2f}" for a, b in zip(marks, marks[1:]))
     bg = BgDistr.load(paths.bg_dir(prep) / paths.BG_DISTR)
-    insert = bg.insert_distr.distr.mean()
-    d = bg.depth.depth_distribution(41)
-    depth = d.mean() * 2 * 2 * 150.0 / bg.depth.window_size
-    mism = float(np.exp(bg.err_prof.ln_mismatch))
-    check(abs(insert / 400.0 - 1) <= 0.05,
-          f"{what}: estimated insert mean {insert:.1f}, simulated 400")
-    check(abs(depth / (2 * WGS_DEPTH) - 1) <= 0.25,
-          f"{what}: estimated depth {depth:.2f}x, simulated "
-          f"{2 * WGS_DEPTH}x")
-    check(0.5 <= mism / WGS_SUB_RATE <= 2.0,
-          f"{what}: estimated mismatch rate {mism:.5f}, simulated "
-          f"{WGS_SUB_RATE}")
+    insert, depth, mism = check_wgs_estimates(what, bg)
     check(bg.seq_info.total_reads == reads1.shape[0],
           f"{what}: preproc counted {bg.seq_info.total_reads} pairs")
     rc = cli.main([*device_args, "genotype", "-i", str(fq1), str(fq2),
@@ -1569,7 +1630,242 @@ def run_wgs_path(what, tmp, loci, rng, contig_len=WGS_CONTIG,
           f"{len(loci)}/{len(loci)} res.json.gz name the truth; peak device "
           f"memory {peak:.0f} MiB; launches {dict(_kernels.LAUNCHES)}",
           flush=True)
-    return preproc + ["--rerun", "all"]
+    return dict(preproc=preproc + ["--rerun", "all"], loci=loci,
+                genome=genome, layouts=layouts, reads=(reads1, reads2),
+                frags=frags, ref=ref, db=db)
+
+
+# -- (j): (d)'s sample as an indexed CRAM and BAM ----------------------------
+
+class CopyLayout(namedtuple("CopyLayout", "copy_start genome_start genome_len "
+                                          "is_locus")):
+    """The parts of one sample copy of (d): where each part starts in the
+    copy and on the contig, how long it is on the contig, and whether it is
+    a locus (the copy holds a haplotype there, the contig the first)."""
+
+    def part(self, x):
+        return np.searchsorted(self.copy_start, x, side="right") - 1
+
+    def to_genome(self, x):
+        """Contig positions of copy positions `x`; inside a locus, the
+        offset in the haplotype, cut at the locus's end."""
+        i = self.part(x)
+        return self.genome_start[i] + np.minimum(x - self.copy_start[i],
+                                                 self.genome_len[i] - 1)
+
+
+def aligned_records(wgs, unplaced_every=UNPLACED_EVERY):
+    """(d)'s pairs as an aligner leaves them: each mate at its place on the
+    contig (a pair of a locus at the locus's start plus its offset in the
+    haplotype), the fragment's reverse end with flag 0x10 and its bases in
+    contig orientation; one in `unplaced_every` pairs of the loci unmapped
+    (flag 0x4, no position).  Returns (the placed mates as rows (pair,
+    mate) sorted by position, the unplaced pairs, flags [N, 2], positions
+    [N, 2], -1 where unplaced)."""
+    frags = wgs["frags"]
+    n = frags["start"].size
+    read_len = wgs["reads"][0].shape[1]
+    fwd = np.empty(n, np.int64)
+    rev = np.empty(n, np.int64)
+    at_locus = np.empty(n, bool)
+    for c, layout in enumerate(wgs["layouts"]):
+        sel = frags["copy"] == c
+        start, ins = frags["start"][sel], frags["ins"][sel]
+        fwd[sel] = layout.to_genome(start)
+        rev[sel] = layout.to_genome(start + ins - read_len)
+        at_locus[sel] = (layout.is_locus[layout.part(start)]
+                         | layout.is_locus[layout.part(start + ins - 1)])
+    swap = frags["swap"]
+    pos = np.stack([np.where(swap, rev, fwd), np.where(swap, fwd, rev)], 1)
+    flags = np.full((n, 2), tbam.FLAG_PAIRED, np.int64)
+    flags[:, 0] |= tbam.FLAG_MATE1
+    flags[:, 1] |= tbam.FLAG_MATE2
+    flags[swap, 0] |= tbam.FLAG_REVERSE
+    flags[~swap, 1] |= tbam.FLAG_REVERSE
+    unplaced = np.flatnonzero(at_locus)[::unplaced_every]
+    flags[unplaced] = (flags[unplaced] & ~tbam.FLAG_REVERSE) \
+        | tbam.FLAG_UNMAPPED | 0x8
+    pos[unplaced] = -1
+    placed = np.ones(n, bool)
+    placed[unplaced] = False
+    pairs = np.flatnonzero(placed)
+    mates = np.concatenate([np.stack([pairs, np.zeros_like(pairs)], 1),
+                            np.stack([pairs, np.ones_like(pairs)], 1)])
+    order = np.argsort(pos[mates[:, 0], mates[:, 1]], kind="stable")
+    return mates[order], unplaced, flags, pos
+
+
+def write_aligned(what, tmp, wgs):
+    """wgs.cram (against ref.fa) and wgs.bam, the same records in each,
+    then indexed by the port's `index`.  Returns (paths, the unplaced pairs'
+    names, seconds to write, seconds to index)."""
+    t0 = time.perf_counter()
+    mates, unplaced, flags, pos = aligned_records(wgs)
+    genome, reads = wgs["genome"], wgs["reads"]
+    cram, bam = tmp / "wgs.cram", tmp / "wgs.bam"
+
+    def name(i):
+        return f"w{i:08d}"
+
+    with CramWriter(cram, ["chr1"], [genome.size],
+                    reference={"chr1": genome}) as cw, \
+            tbam.BamWriter(bam, ["chr1"], [genome.size]) as bw:
+        for i, m in itertools.chain(
+                mates.tolist(), ((i, m) for i in unplaced.tolist()
+                                 for m in (0, 1))):
+            flag, p = int(flags[i, m]), int(pos[i, m])
+            codes = reads[m][i]
+            if flag & tbam.FLAG_REVERSE:
+                codes = (3 - codes[::-1]).astype(np.int8)
+            rid = 0 if p >= 0 else -1
+            cw.write(name(i), flag, codes, ref_id=rid, pos=p)
+            bw.write(name(i), flag, codes, ref_id=rid, pos=p)
+    t1 = time.perf_counter()
+    for path in (cram, bam):
+        check(cli.main(["index", str(path)]) == 0, f"{what}: index {path.name}")
+    t2 = time.perf_counter()
+    return (cram, bam), {name(i) for i in unplaced.tolist()}, t1 - t0, t2 - t1
+
+
+def run_j_path(what, tmp, wgs, rec, rp, device_args=()):
+    """(j): (d)'s sample as users hold it, a coordinate-sorted, indexed
+    CRAM with its reference: `preproc -a wgs.cram -r ref.fa` on (d)'s
+    background region fetches through the .crai (its estimates within
+    (d)'s bounds), `genotype -i wgs.cram -r ref.fa` fetches the loci's
+    padded regions and the unplaced tail (every call the truth, the reads
+    the host engine's over the same fetched stream), and `genotype -i
+    wgs.bam -r ref.fa --stop-after recruit` recruits the same reads."""
+    (cram, bam), unplaced, t_write, t_index = write_aligned(what, tmp, wgs)
+    ref, db, loci = wgs["ref"], wgs["db"], wgs["loci"]
+    prep = tmp / "sample_cram"
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with LogLines() as log:
+        rc = cli.main([*device_args, "preproc", "-a", str(cram), "-r",
+                       str(ref), "-o", str(prep)])
+    sync()
+    t1 = time.perf_counter()
+    check(rc == 0, f"{what}: preproc returned {rc}")
+    fetched = log.find(r"Indexed input: fetched (\d+) read")
+    check(fetched is not None, f"{what}: preproc did not fetch by the index")
+    bg = BgDistr.load(paths.bg_dir(prep) / paths.BG_DISTR)
+    insert, depth, mism = check_wgs_estimates(what, bg)
+    with LogLines() as log:
+        rc = cli.main([*device_args, "genotype", "-i", str(cram), "-r",
+                       str(ref), "-d", str(db), "-p", str(prep), "-o",
+                       str(tmp / "out_j"), "--seed", "1"])
+    sync()
+    t2 = time.perf_counter()
+    check(rc == 0, f"{what}: genotype returned {rc}")
+    regions = log.find(r"Indexed input: fetching (\d+) locus region")
+    check(regions == str(len(loci)), f"{what}: genotype fetched {regions} "
+          "locus regions by the index")
+    check_calls(what, tmp / "out_j", loci)
+    peak = (torch.cuda.max_memory_allocated() / 2**20
+            if torch.cuda.is_available() else float("nan"))
+    rc = cli.main([*device_args, "genotype", "-i", str(bam), "-r", str(ref),
+                   "-d", str(db), "-p", str(prep), "-o",
+                   str(tmp / "out_j_bam"), "--stop-after", "recruit"])
+    sync()
+    t3 = time.perf_counter()
+    check(rc == 0, f"{what}: genotype from the BAM returned {rc}")
+    got = rec.recruited["out_j"]
+    check(rec.recruited["out_j_bam"] == got,
+          f"{what}: the BAM's recruited reads differ from the CRAM's")
+    names = [lc.name for lc in loci]
+    stream = list(G._indexed_read_iter(
+        G._indexed_plan([cram], reference=str(ref)),
+        G._load_ref_intervals(db, names), reference=str(ref)))
+    check_against_host(f"{what}, the fetched stream",
+                       {n: G.load_locus(db, n) for n in names},
+                       {n: (None, v) for n, v in got.items()}, iter(stream),
+                       rp)
+    n_unplaced = sum(len(unplaced.intersection(v)) for v in got.values())
+    check(n_unplaced > 0, f"{what}: no unplaced pair was recruited")
+    print(f"main path {what}: {wgs['reads'][0].shape[0]} pairs written to "
+          f"wgs.cram and wgs.bam in {t_write:.2f} s ({len(unplaced)} "
+          f"unplaced), indexed in {t_index:.2f} s; preproc -a wgs.cram "
+          f"{t1 - t0:.2f} s ({fetched} pairs fetched; insert {insert:.1f}, "
+          f"depth {depth:.2f}x, mismatches {100 * mism:.4f} %), genotype -i "
+          f"wgs.cram {t2 - t1:.2f} s ({len(stream)} pairs fetched, "
+          f"{sum(map(len, got.values()))} recruited, {n_unplaced} of them "
+          f"unplaced; {len(loci)}/{len(loci)} res.json.gz name the truth), "
+          f"genotype -i wgs.bam --stop-after recruit {t3 - t2:.2f} s (the "
+          f"same reads); peak device memory {peak:.0f} MiB; launches "
+          f"{dict(_kernels.LAUNCHES)}", flush=True)
+
+
+# -- (a-m16), (a-priors), (a-knobs): genotype options on (a')'s files -------
+
+def write_priors(path, loci):
+    """For each locus: the truth at 0, two other genotypes at -1 and -2 and
+    one at -inf (log10).  Returns {locus: the finite genotypes, sorted}."""
+    lines, listed = [], {}
+    for lc in loci:
+        names = lc.hap_names
+        truth = sorted(names[i] for i in lc.true_genotype)
+        others = [[names[a], names[b]] for a in range(len(names))
+                  for b in range(a, len(names))
+                  if [names[a], names[b]] != truth]
+        for gt, prior in zip([truth] + others[:3], ("0", "-1", "-2", "-inf")):
+            lines.append(f"{lc.name}\t{','.join(gt)}\t{prior}")
+        listed[lc.name] = {tuple(g) for g in [truth] + others[:2]}
+    path.write_text("\n".join(lines) + "\n")
+    return listed
+
+
+def run_option_cli(key, tmp, loci, fq1, fq2, rec, device_args=()):
+    """(a-m16), (a-priors) or (a-knobs): (a')'s files, database and
+    background through `genotype` with options; every call must equal the
+    truth and (a')'s call."""
+    calls = []
+    if key == "a-m16":
+        calls.append(("out_m16", ["-m", "16,10"]))
+    elif key == "a-priors":
+        listed = write_priors(tmp / "priors.tsv", loci)
+        calls.append(("out_priors", ["--priors", str(tmp / "priors.tsv")]))
+    else:
+        calls += [("out_knobs_model", MODEL_KNOBS),
+                  ("out_knobs_filter", FILTER_KNOBS)]
+    notes = []
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    for out_name, extra in calls:
+        secs, _ = run_genotype_cli(f"({key}) genotype {' '.join(extra)}",
+                                   tmp, loci, fq1, fq2, out_name, extra,
+                                   device_args)
+        notes.append(f"genotype {' '.join(extra)} {secs:.2f} s")
+    if key == "a-m16":
+        n = sum(map(len, rec.recruited["out_m16"].values()))
+        notes.append(f"{n} pairs recruited at k = 16 (k = 15: "
+                     f"{sum(map(len, rec.recruited['out'].values()))})")
+    elif key == "a-priors":
+        for lc in loci:
+            with gzip.open(paths.locus_dir(tmp / "out_priors", lc.name)
+                           / paths.RES_JSON, "rt") as f:
+                res = json.load(f)
+            got = {tuple(sorted(o["genotype"].split(",")))
+                   for o in res["options"]}
+            check(got == listed[lc.name], f"(a-priors) {lc.name}: options "
+                  f"{sorted(got)}, the file's finite genotypes "
+                  f"{sorted(listed[lc.name])}")
+        notes.append("every locus's options are the file's 3 finite "
+                     "genotypes")
+    else:
+        for lc in loci:
+            ldir = paths.locus_dir(tmp / "out_knobs_filter", lc.name)
+            for fn in DEBUG_FILES:
+                check((ldir / fn).exists(),
+                      f"(a-knobs) --debug 2: {lc.name}/{fn} missing")
+        notes.append(f"--debug 2 wrote {', '.join(DEBUG_FILES)} for every "
+                     "locus")
+    peak = (torch.cuda.max_memory_allocated() / 2**20
+            if torch.cuda.is_available() else float("nan"))
+    print(f"main path ({key}) command line: {'; '.join(notes)}; "
+          f"{len(loci)}/{len(loci)} res.json.gz name the truth and equal "
+          f"(a')'s calls in every call; peak device memory {peak:.0f} MiB; "
+          f"launches {dict(_kernels.LAUNCHES)}", flush=True)
 
 
 # -- (f): the reference's 100-locus panel through add and genotype ----------
@@ -1593,7 +1889,7 @@ def build_panel_sample(rng, n_loci=PANEL_LOCI,
     locus_reads = tuple([x for p in pools for x in getattr(p, f)]
                         for f in ("names", "reads1", "reads2"))
     background = sample_pairs(rng, flanks, DEPTH * background_multiple,
-                              err.mismatch)
+                              err.mismatch)[:2]
     return loci, genome, locus_reads, background
 
 
@@ -2199,7 +2495,9 @@ class Recorder:
         self.path = None
         self.phase = None               # a part of the path kept apart
         self.anneal_by_path = {}        # (path, mode) -> (args, kw, size)
-        self.front = {}                 # entry -> (reads, k, w, S)
+        self.front = {}                 # entry -> (reads, k, w, S); at a k
+                                        # other than 15, entry_k<k>
+        self.n_front_k = {}             # entry_k<k> -> launches
         self.widest = {}                # (path, kernel) -> widest launch
         self.greedy_iters = {}          # path -> [iterations of its chains]
         self.recruited = {}             # genotype -o name -> {locus: names}
@@ -2256,6 +2554,10 @@ class Recorder:
 
         def minimizer_front(reads, k, w, S=None):
             entry = "full" if S is None else "compact"
+            if k != 15:
+                entry = f"{entry}_k{k}"
+                if reads.shape[0]:
+                    self.n_front_k[entry] = self.n_front_k.get(entry, 0) + 1
             if entry not in self.front \
                     or reads.numel() > self.front[entry][0].numel():
                 self.front[entry] = (reads, k, w, S)
@@ -2308,7 +2610,11 @@ NEEDS = {"a": ("align_banded", "anneal_chains", FRONT[0]),
          "h-P3": ("align_banded", "anneal_chains", FRONT[0]),
          "h-P1": ("align_banded", "anneal_chains", FRONT[0]),
          "h-w": ("align_banded", "anneal_chains", FRONT[0]),
-         "i": ("align_banded", "anneal_chains", FRONT[1])}
+         "i": ("align_banded", "anneal_chains", FRONT[1]),
+         "j": ("align_banded", "anneal_chains", FRONT[0]),
+         "a-m16": ("align_banded", "anneal_chains", FRONT[0]),
+         "a-priors": ("align_banded", "anneal_chains", FRONT[0]),
+         "a-knobs": ("align_banded", "anneal_chains", FRONT[0])}
 #: kernels that a sample must not launch: (a-seq) and (a-batched) solve
 #: with the sequential and the batched-move engines, which have no kernel of
 #: their own
@@ -2541,13 +2847,21 @@ def main():
                                             rp)[0], bg, 48, seed, mesh=grid,
                     keep=b_mesh)
 
-        wgs_preproc = []
+        wgs = {}
 
         def run_d():
             (tmp / "d").mkdir()
-            wgs_preproc[:] = run_wgs_path(
+            wgs.update(run_wgs_path(
                 "(d) WGS-like, command line: add, preproc, genotype",
-                tmp / "d", panel_loci, np.random.default_rng(4))
+                tmp / "d", panel_loci, np.random.default_rng(4)))
+
+        def run_j():
+            run_j_path("(j) (d)'s sample as an indexed CRAM: preproc -a, "
+                       "genotype -i wgs.cram -r ref.fa", tmp / "d", wgs, rec,
+                       rp)
+
+        def run_option(key):
+            return lambda: run_option_cli(key, tmp, panel_loci, fq1, fq2, rec)
 
         panel_f = {}
 
@@ -2583,9 +2897,13 @@ def main():
                 panel_g["calls"])
 
         paths_run = [("a", run_a), ("a_cli", run_cli), ("a_seq", run_seq),
+                     ("a-m16", run_option("a-m16")),
+                     ("a-priors", run_option("a-priors")),
+                     ("a-knobs", run_option("a-knobs")),
                      ("a_mesh", run_mesh), ("a_batched", run_batched),
                      ("b", run_b), ("b_mesh", run_b_mesh), ("c", run_c),
-                     ("d", run_d), ("f", run_f), ("g", run_g),
+                     ("d", run_d), ("j", run_j), ("f", run_f),
+                     ("g", run_g),
                      ("g_2proc", run_g_2proc),
                      ("h", lambda: run_h_path(tmp / "h", hw, rec)),
                      ("h-P3", lambda: run_h_ploidy_path(
@@ -2663,10 +2981,10 @@ def main():
                 "(c) recruit phase alone, traced",
                 lambda: G.recruit_reads(long_data, long_iter(), rp_long))
             profile_main_path("(d) preproc, traced",
-                              lambda: check(cli.main(wgs_preproc) == 0,
+                              lambda: check(cli.main(wgs["preproc"]) == 0,
                                             "(d) preproc, traced"))
             profile_host("(d) preproc, host functions",
-                         lambda: check(cli.main(wgs_preproc) == 0,
+                         lambda: check(cli.main(wgs["preproc"]) == 0,
                                        "(d) preproc, host functions"))
             profile_main_path("(f) genotype, traced",
                               lambda: check(cli.main(panel_f["argv"]) == 0,
@@ -2749,10 +3067,11 @@ def main():
 
     k2_mode = max(k2_modes, key=launch_size)
     k2 = k2_modes[k2_mode]
-    check(set(rec.front) == {"compact", "full"},
+    check(set(rec.front) == {"compact", "full", "compact_k16"},
           f"minimizer_front entries on the main path: {sorted(rec.front)}")
     k3 = {}
-    for entry, (reads, k, w, S) in rec.front.items():
+    for entry in ("compact", "full"):
+        reads, k, w, S = rec.front[entry]
         m = compare_front(reads, k, w, S, f"main-path {entry} launch")
         k3[entry] = m
         print(f"main-path launch of minimizer_front ({entry}) {m['shape']}: "
@@ -2760,6 +3079,15 @@ def main():
               f"{EARLIER_MS['minimizer_front_' + entry]} ms; "
               f"plain {m['plain_ms']:.0f} ms, bound {m['bound_ms']:.4f} ms "
               f"by {m['bound_by']})", flush=True)
+    # (a-m16): the compacting entry at k = 16, on its largest launch.
+    reads, k, w, S = rec.front["compact_k16"]
+    k3_16 = compare_front(reads, k, w, S, "(a-m16) largest k = 16 launch")
+    n_k16 = rec.n_front_k["compact_k16"]
+    print(f"(a-m16) largest launch of minimizer_front (compact) at k = 16 "
+          f"{k3_16['shape']}, {n_k16} launches at k = 16: all outputs "
+          f"bit-identical; {k3_16['ms']:.4f} ms (plain "
+          f"{k3_16['plain_ms']:.0f} ms, bound {k3_16['bound_ms']:.4f} ms by "
+          f"{k3_16['bound_by']})", flush=True)
 
     def numbers(m):
         return {k: m[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2802,7 +3130,9 @@ def main():
               entries={
                   "compact": entry(FRONT[0], FRONT[:1], "minimizer_front.cu",
                                    "locityper_tpu/ops/recruit.py:358",
-                                   k3["compact"]),
+                                   k3["compact"],
+                                   k16=dict(numbers(k3_16),
+                                            launches=n_k16)),
                   "full": entry(FRONT[1], FRONT[1:], "minimizer_front.cu",
                                 "locityper_tpu/ops/recruit.py:316",
                                 k3["full"], rows_of_131072=numbers(k5e))})]}),

@@ -11,8 +11,9 @@
 // ops/recruit.py:minimizer_front_reference and is held bit-for-bit against it
 // on the card on every output (integers only, so there is no tolerance).
 //
-// Per read row of L codes (0-3 bases, anything else invalid), k <= 15,
-// P = L - k + 1 positions:
+// Per read row of L codes (0-3 bases, anything else invalid), k <= 16
+// (2k-bit k-mers, all 32 bits of a word at k = 16), P = L - k + 1
+// positions:
 //   fw / rv   2-bit k-mers of codes p..p+k-1 and of their reverse complement
 //   is_fw     fw <= rv; kmer = min(fw, rv)
 //   x         ~kmer; x ^= x >> 16; x *= 0x85EBCA6B; x ^= x >> 13   (uint32)
@@ -31,7 +32,8 @@
 // Bound: bytes.  A position reads one byte of codes; the full-width entry
 // writes 6 bytes for it, the compacting entry 6 * S / P.  Operations of one
 // position, counted once for the rolling form of the k-mers (what the
-// function needs), 26 + 4 * (w - 1) int32 operations, 62 at w = 10:
+// function needs), 26 + 4 * (w - 1) int32 operations, 62 at w = 10, for
+// every k (k only moves P):
 //    2  code validity: compare with 4, select 0
 //    3  forward k-mer: shift, or, and
 //    4  reverse k-mer: 3 - c, shift, shift, or
@@ -134,7 +136,8 @@ minimizer_front_kernel(const int8_t* __restrict__ reads, long long units,
   const int first = COMPACT ? 0 : (int)(unit - row * n_chunks) * CHUNK;
   const int end = COMPACT ? P : min(first + CHUNK, P);
   const unsigned lanes_below = (1u << lane) - 1u;
-  const uint32_t kmask = (1u << (2 * k)) - 1u;
+  // At k = 16 the k-mer fills the word: a shift by 32 is undefined.
+  const uint32_t kmask = k == 16 ? 0xFFFFFFFFu : (1u << (2 * k)) - 1u;
   const int span_log = 31 - __clz(w);     // the largest power of 2 <= w
   int count = 0;         // minimizers of the row before this step (uniform)
 
@@ -264,7 +267,7 @@ template <bool COMPACT>
 int launch(const void* reads, long long B, int L, int k, int w, int S,
            void* out_h, void* out_fw, void* out_mask, void* out_total,
            void* stream) {
-  if (k < 1 || k > 15 || w < 1 || w > 1024 || L < k || B < 0 ||
+  if (k < 1 || k > 16 || w < 1 || w > 1024 || L < k || B < 0 ||
       B > 0x7fffffffLL || (COMPACT && S < 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;

@@ -47,7 +47,7 @@ from ..seq.recruit import (DIR_BW, DIR_FW, RARE_BIT, RARE_WORTH,
 SIGN_BIT = 0x80000000
 BIG_S32 = 0x7FFFFFFF                    # the undefined hash, signed view
 _I32_MIN = -0x80000000                  # SIGN_BIT as an int32 bit pattern
-MAX_K = 15                              # 30-bit k-mers in 32-bit words
+MAX_K = 16                              # 32-bit k-mers in 32-bit words
 MAX_W = 1024                            # halo of w - 1 a chunk: 35 KB a warp
 
 _Cfg = namedtuple("_Cfg", "n_loci n_groups k w frac_p frac_q")
@@ -135,7 +135,7 @@ def _check_front_args(reads, k: int, w: int, S):
                          f"{tuple(reads.shape)} {reads.dtype}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"minimizer_front requires 1 <= k <= {MAX_K} "
-                         f"(30-bit k-mers in 32-bit words), got {k}")
+                         f"(2k-bit k-mers in 32-bit words), got {k}")
     if not 1 <= w <= MAX_W:
         raise ValueError(f"minimizer_front requires 1 <= w <= {MAX_W}, got {w}")
     if reads.shape[1] < k:

@@ -161,6 +161,7 @@ def test_anneal_kernel_schedule_cases(card, case):
     (5, 200, 15, 10),           # rows no multiple of the warps a block
     (333, 1000, 15, 10),        # S = P // 16 cuts inside a later chunk
     (129, 1001, 13, 12),        # rows of no multiple of 16 bytes
+    (257, 152, 16, 10),         # k = 16: k-mers fill the 32-bit word
     (9, 2000, 15, 1024),        # 4 warps of 35,072 B: past 48 KB a block
     (0, 192, 15, 10),           # an empty batch
 ])
@@ -191,7 +192,7 @@ def test_minimizer_front_kernel_equals_plain_version(card, B, L, k, w):
         want = TR.minimizer_front_reference(reads, k, w, S)
         for name, a, b in zip(("hs", "is_fw", "mask", "total"), got, want):
             assert a.dtype == b.dtype and torch.equal(a, b), (name, S)
-    for k2, w2 in ((11, 5), (7, 1), (15, 40)):
+    for k2, w2 in ((11, 5), (7, 1), (15, 40), (16, 10)):
         if L < k2:
             continue
         for S in (None, 12):

@@ -92,6 +92,15 @@ def world(tmp_path_factory):
         errors=err, prefix=lc.name) for lc in loci]
     pools.append(sim.simulate_paired_reads(rng, [genome], depth=4.0,
                                            errors=err, prefix="bg"))
+    # Where each pair was drawn: its source sequence, the fragment's start
+    # in it, and where the source starts on chr1 (the loci's haplotypes
+    # are placed at their locus's start).
+    sources = [([lc.haplotypes[i] for i in lc.true_genotype], start)
+               for lc, start in zip(loci, (s1, s2))] + [([genome], 0)]
+    frags = {name: (seqs[src], pos, start)
+             for pool, (seqs, start) in zip(pools, sources)
+             for name, src, pos in zip(pool.names, pool.source_hap,
+                                     pool.source_pos)}
     names = [n for p in pools for n in p.names]
     all1 = [r for p in pools for r in p.reads1]
     all2 = [r for p in pools for r in p.reads2]
@@ -112,6 +121,7 @@ def world(tmp_path_factory):
              for lc in loci}
     return SimpleNamespace(
         root=root, loci=loci, r1=r1, r2=r2, db=db, prep=prep, truth=truth,
+        genome=genome, frags=frags,
         reads=[(names[i], all1[i], all2[i]) for i in order],
         base=["-i", str(r1), str(r2), "-d", str(db), "-p", str(prep)])
 

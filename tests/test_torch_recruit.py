@@ -141,10 +141,38 @@ def test_front_small_shapes_and_other_parameters(k, w, L):
         np.testing.assert_array_equal(cf[i, :ct[i]], fx[i][mx[i]])
 
 
+@pytest.mark.parametrize("k,w", [(16, 10), (16, 1), (16, 25)])
+def test_front_at_k16_equals_the_xla_path(k, w):
+    """At k = 16 the k-mers fill 32 bits (`genotype -m 16,10`): the JAX
+    package's CPU path (`_hash_mask`, XLA) and the port's plain version agree
+    bit for bit on hs, is_fw and mask, with N in the reads, and the
+    compacting entry keeps the same minimizers."""
+    rng = np.random.default_rng(16 + w)
+    reads = rng.integers(0, 4, (64, 192)).astype(np.int8)
+    reads[rng.random(reads.shape) < 0.01] = 4
+    reads[0] = 2
+    reads[1, 50:90] = 4
+    reads[2] = 3
+    hs, is_fw, mask = map(np.asarray, JR._hash_mask(jnp.asarray(reads), k, w))
+    th, tf, tm = (a.numpy() for a in TR.minimizer_front(t8(reads), k, w))
+    np.testing.assert_array_equal(th, hs)
+    np.testing.assert_array_equal(tf, is_fw)
+    np.testing.assert_array_equal(tm, mask)
+    assert mask.any() and (th == BIG).any()
+    S = TR._front_S(192 - k + 1, w)
+    ch, cf, cm, ct = (a.numpy() for a in TR.minimizer_front(t8(reads), k, w,
+                                                           S))
+    np.testing.assert_array_equal(ct, mask.sum(axis=1))
+    for i in range(reads.shape[0]):
+        n = min(int(ct[i]), S)
+        np.testing.assert_array_equal(ch[i, :n], hs[i][mask[i]][:n])
+        np.testing.assert_array_equal(cf[i, :n], is_fw[i][mask[i]][:n])
+
+
 def test_front_rejects_what_the_kernel_does_not_take():
     reads = t8(np.zeros((4, 40), np.int8))
-    with pytest.raises(ValueError, match="k <= 15"):
-        TR.minimizer_front(reads, 16, 10)
+    with pytest.raises(ValueError, match="k <= 16"):
+        TR.minimizer_front(reads, 17, 10)
     with pytest.raises(ValueError, match="hold no 15-mer"):
         TR.minimizer_front(reads[:, :14], 15, 10)
     with pytest.raises(ValueError, match="int8"):
@@ -326,7 +354,8 @@ def rolling_model(reads, k, w, chunk, lanes):
 
 @pytest.mark.parametrize("chunk,lanes", [(256, 32), (32, 32), (64, 8)])
 @pytest.mark.parametrize("L,k,w", [(700, 15, 10), (301, 11, 40), (40, 15, 10),
-                                   (15, 15, 10), (20, 15, 10), (90, 7, 1)])
+                                   (15, 15, 10), (20, 15, 10), (90, 7, 1),
+                                   (700, 16, 10), (16, 16, 10)])
 def test_kernel_rolling_kmers_equal_plain_hashes(chunk, lanes, L, k, w):
     """hs and is_fw of the rolled k-mers equal the plain version's at every
     position, invalid ones included (is_fw is defined there, from the codes
