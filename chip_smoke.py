@@ -127,6 +127,32 @@ reference-default scheme) on simulated samples whose truth is known:
        and the debug files (`--filt-diff 50 --prob-thresh -3 --dont-skip
        --debug 2`): every call must equal the truth and (a')'s, and the
        three debug files exist for every locus.
+  (a-profile) the same through `genotype --profile <dir>`: every call must
+       equal the truth and (a')'s, and the trace the command line writes
+       (`torch.profiler`, CUDA activity) must name at least one launch of
+       K1, K2 and K3.
+  (k)  BASELINE.json config 4's ONT half over config 3's locus: (h)'s gene,
+       spacer and paralog with their flanks lengthened (108 kb before the
+       locus, 50 kb after the paralog), the locus widened to hold 12 kb
+       reads (8 kb of flank, the gene, the spacer, the paralog, 8 kb: 36
+       kb); ONT-like single reads (2 % / 0.8 % / 0.8 %) of 12,000 +- 2,000
+       bases at 10x from each of two copies, each with one true haplotype
+       (seed 11), so that reads span the gene, the spacer and the paralog;
+       `add`, `preproc --tech ont -b chr1:1-50000 --max-reads 2000`, once
+       more with `-q 0`, and `genotype`: the call must equal the truth, the
+       recruited reads the host engine's, reads over the paralog be among
+       them, the estimates say `ont`, the read length within 5 % of the
+       sample's, the mismatch rate within a factor 2 of 2 %, the `-q 0`
+       depth within 25 % of 10x a copy and the default's no higher (both
+       packages drop a long read from the depth count when its two
+       candidate windows give one alignment).  K5, K1 (8 jobs) and K2 are
+       held on (k)'s widest launches of `preproc` and `genotype`.
+  (k-bam) (k)'s reads as an aligner leaves them in a sorted ont.bam (each
+       read at its place with `<len>M`, reverse reads with flag 0x10 in
+       contig orientation), indexed by the port's `index`; `preproc -a
+       ont.bam --tech ont` and `genotype -i ont.bam`: the call must equal
+       the truth and (k)'s, the recruited reads (k)'s among the reads the
+       index fetch yields, and the estimates lie within 10 % of (k)'s.
 
   (a-mesh) the files of (a') through `genotype` with
        `parallel.mesh.auto_mesh` returning a 2 x 2 grid of 4 shards on card
@@ -316,6 +342,14 @@ K2_CUT = (2000, 1000)           # (h-P3), (h-P1): anneal and polish steps of
                                 # the stage-2 launch held against plain
 HIFI_LOCUS = 16_384             # (i): bp
 UNPLACED_EVERY = 10             # (j): one in this many locus pairs unmapped
+K_BG = 50_000                   # (k): preproc -b chr1:1-K_BG
+K_LEFT = 100_000                # (k): bases before the locus, K_BG + preproc's
+                                # 50 kb padding
+K_RIGHT = 50_000                # (k): the right flank, from the paralog's end
+K_MARGIN = 8_000                # (k): of each flank inside the widened locus
+ONT_READS = (12_000, 2_000)     # (k): read length, mean and sd ((c)'s)
+ONT_ERRORS = (0.02, 0.008, 0.008)   # (k): mismatch, insertion, deletion ((e)'s)
+ONT_DEPTH = 10.0                # (k): a copy
 MODEL_KNOBS = ["-A", "0.5", "2", "3", "-U", "-8", "--tweak", "40",
                "--min-weight", "0.01", "--kmers-weight", "0.3,3",
                "--compl-weight", "0.4,3", "--read-kmers", "1,6"]
@@ -2333,47 +2367,50 @@ def check_h_i_recruitment(hw, iw, rec, rp):
                       match_length=2000), ordered=False)
 
 
+def hold_anneal_mode(rec, key, mode):
+    """The annealer's largest launch of `mode` on path `key` against the
+    plain version: polish only whole, the stage-2 launch with its schedule
+    cut to K2_CUT (and the kernel timed on the whole of it)."""
+    check((key, mode) in rec.anneal_by_path,
+          f"({key}): no {mode} launch of anneal_chains")
+    args, kw, _ = rec.anneal_by_path[(key, mode)]
+    what, whole = f"({key}) {mode} launch", ""
+    whole_ms = None
+    if mode == "anneal":
+        whole_ms = time_ms(lambda: SC.anneal_chains(*args, **kw))
+        whole = (f"; the whole launch ({kw['n_steps']:,} steps) "
+                 f"{whole_ms:.3f} ms")
+        kw = cut_schedule(kw, *K2_CUT)
+        what += f", cut to {K2_CUT[0]:,} + {K2_CUT[1]:,} steps"
+    m = compare_anneal(args, kw, what, timed=True)
+    m["whole_ms"] = whole_ms
+    print(f"{what} of anneal_chains {m['shape']}: equals plain exactly; "
+          f"{m['moves']} moves proposed, {m['rounds_per_batch']:.2f} "
+          f"evaluation rounds a batch; {m['ms']:.3f} ms (plain "
+          f"{m['plain_ms']:.0f} ms, bound {m['bound_ms']:.4f} ms by "
+          f"{m['bound_by']}){whole}", flush=True)
+    return m
+
+
 def hold_ploidy_launches(rec):
     """(h-P3) and (h-P1): the annealer at ploidy 3 and 1, K = P Kh + 1 slots
     (or the cap k_eff) and W = 2 + P max_windows windows, each mode's
-    largest launch of the path against the plain version: polish only
-    whole, the stage-2 launch with its schedule cut to K2_CUT (and the
-    kernel timed on the whole of it).  (h-P1)'s 8 genotypes skip the greedy
-    stage, so it has no polish-only launch.  Returns {mode_P<p>: numbers}."""
-    held = {}
-    for key, ploidy, modes in (("h-P3", 3, ("polish", "anneal")),
-                               ("h-P1", 1, ("anneal",))):
-        for mode in modes:
-            check((key, mode) in rec.anneal_by_path,
-                  f"({key}): no {mode} launch of anneal_chains")
-            args, kw, _ = rec.anneal_by_path[(key, mode)]
-            what, whole = f"({key}) {mode} launch", ""
-            whole_ms = None
-            if mode == "anneal":
-                whole_ms = time_ms(lambda: SC.anneal_chains(*args, **kw))
-                whole = (f"; the whole launch ({kw['n_steps']:,} steps) "
-                         f"{whole_ms:.3f} ms")
-                kw = cut_schedule(kw, *K2_CUT)
-                what += f", cut to {K2_CUT[0]:,} + {K2_CUT[1]:,} steps"
-            m = compare_anneal(args, kw, what, timed=True)
-            m["whole_ms"] = whole_ms
-            held[f"{mode}_P{ploidy}"] = m
-            print(f"{what} of anneal_chains {m['shape']}: equals plain "
-                  f"exactly; {m['moves']} moves proposed, "
-                  f"{m['rounds_per_batch']:.2f} evaluation rounds a batch; "
-                  f"{m['ms']:.3f} ms (plain {m['plain_ms']:.0f} ms, bound "
-                  f"{m['bound_ms']:.4f} ms by {m['bound_by']}){whole}",
-                  flush=True)
-    return held
+    largest launch of the path (`hold_anneal_mode`).  (h-P1)'s 8 genotypes
+    skip the greedy stage, so it has no polish-only launch.  Returns
+    {mode_P<p>: numbers}."""
+    return {f"{mode}_P{ploidy}": hold_anneal_mode(rec, key, mode)
+            for key, ploidy, modes in (("h-P3", 3, ("polish", "anneal")),
+                                       ("h-P1", 1, ("anneal",)))
+            for mode in modes}
 
 
-def hold_hifi_launches(rec):
-    """(i): K1 on the widest launch of `preproc --tech hifi` (band 48: the
-    background estimation aligns at band 48 whatever the technology, in
+def hold_long_launches(rec, path):
+    """(i), (k): K1 on the widest launch of the path's `preproc` (band 48:
+    the background estimation aligns at band 48 whatever the technology, in
     the JAX package too) and of its `genotype` (band 160), each on 8 of its
-    jobs longer than LONG_ROWS.  Returns {path: numbers}."""
+    jobs longer than LONG_ROWS.  Returns {key: numbers}."""
     held = {}
-    for key, want_band in (("i-preproc", 48), ("i", 160)):
+    for key, want_band in ((f"{path}-preproc", 48), (path, 160)):
         check((key, "align") in rec.widest,
               f"({key}): no launch of align_banded")
         reads, lens, wins, svec, band = rec.widest[(key, "align")]
@@ -2396,6 +2433,354 @@ def hold_hifi_launches(rec):
               f"{m['plain_ms']:.0f} ms, bound {m['bound_ms']:.4f} ms by "
               f"{m['bound_by']})", flush=True)
     return held
+
+
+# -- (k): ONT reads over (h)'s locus (BASELINE config 4's ONT half) --------
+
+def draw_single_reads(rng, copies, depth, length, errors, prefix):
+    """Single reads along each sequence of `copies` at `depth` a copy, as
+    `sim.simulate_single_reads` draws them (lengths N(mean, sd), at least
+    300; the reverse strand in half the draws; `errors` (mismatch,
+    insertion, deletion) as `sim.ErrorModel.apply`'s per-base events, drawn
+    for all bases of a read at once).  Returns (names, reads, places):
+    places[i] = (copy, start, span, reverse)."""
+    mism_p, ins_p, del_p = errors
+    names, reads, places = [], [], []
+    for c, seq in enumerate(copies):
+        covered = 0
+        while covered < depth * seq.size:
+            span = min(max(int(rng.normal(*length)), 300), seq.size)
+            start = int(rng.integers(0, seq.size - span + 1))
+            frag = seq[start:start + span]
+            rev = bool(rng.random() < 0.5)
+            if rev:
+                frag = (3 - frag[::-1]).astype(np.int8)
+            r = rng.random(span)
+            out = frag.copy()
+            mism = (r >= del_p + ins_p) & (r < del_p + ins_p + mism_p)
+            out[mism] = (out[mism] + rng.integers(1, 4, int(mism.sum()))) % 4
+            keep = r >= del_p
+            ins = (r < del_p + ins_p)[keep]
+            extra = rng.integers(0, 4, int(ins.sum())).astype(np.int8)
+            reads.append(np.insert(out[keep], np.flatnonzero(ins), extra))
+            names.append(f"{prefix}{len(names):06d}")
+            places.append((c, start, span, rev))
+            covered += span
+    return names, reads, places
+
+
+def build_ont_paralog_sample(hw, rng):
+    """(k)'s world: (h)'s contig with its flanks lengthened by random bases
+    before the left one and after the right one; the locus is (h)'s gene
+    widened by K_MARGIN of the flank before it and by the spacer, the
+    paralog and K_MARGIN of the flank after it, so that it can hold reads
+    of ONT_READS; K_LEFT bases before the locus (the background region
+    chr1:1-K_BG padded by `preproc`'s 50 kb) and K_RIGHT after the
+    paralog.  Two sample copies, each with one haplotype of (h)'s truth in
+    the gene's place, and ONT-like single reads along both at ONT_DEPTH a
+    copy.  Returns a dict: locus (the widened one), genome, left (the
+    flank outside the locus), paralog (its span on the contig), reads
+    ((names, sequences)), places."""
+    gene, flanks, genome_h = hw["locus"], hw["flanks"], hw["genome"]
+    at = flanks[0].size + gene.haplotypes[0].size
+    middle = genome_h[at:genome_h.size - flanks[2].size]  # spacer + paralog
+    left = np.concatenate([
+        sim.random_genome(rng, K_LEFT + K_MARGIN - flanks[0].size),
+        flanks[0][:-K_MARGIN]])
+    right = np.concatenate([flanks[2][K_MARGIN:],
+                            sim.random_genome(rng, K_RIGHT - flanks[2].size)])
+    locus = sim.SimLocus(
+        gene.name, [np.concatenate([flanks[0][-K_MARGIN:], h, middle,
+                                    flanks[2][:K_MARGIN]])
+                    for h in gene.haplotypes],
+        gene.hap_names, gene.true_genotype)
+    genome = np.concatenate([left, locus.haplotypes[0], right])
+    copies = [np.concatenate([left, locus.haplotypes[i], right])
+              for i in locus.true_genotype]
+    names, reads, places = draw_single_reads(rng, copies, ONT_DEPTH,
+                                             ONT_READS, ONT_ERRORS, "ont")
+    para_lo = left.size + K_MARGIN + gene.haplotypes[0].size \
+        + flanks[1].size
+    return dict(locus=locus, genome=genome, left=left, places=places,
+                paralog=(para_lo, para_lo + middle.size - flanks[1].size),
+                reads=(names, reads))
+
+
+def ont_contig_positions(kw):
+    """Where an aligner places each read of (k) on the contig: a read that
+    starts in the locus at the locus's start plus its offset in the copy's
+    haplotype (cut at the locus's end); past the locus, shifted by the
+    difference of the haplotypes' lengths; its `<len>M` kept on the
+    contig."""
+    locus, left = kw["locus"], kw["left"].size
+    lens = [locus.haplotypes[i].size for i in locus.true_genotype]
+    hap0 = locus.haplotypes[0].size
+    out = []
+    for (c, start, _span, _rev), read in zip(kw["places"], kw["reads"][1]):
+        if start < left:
+            pos = start
+        elif start < left + lens[c]:
+            pos = left + min(start - left, hap0 - 1)
+        else:
+            pos = start - lens[c] + hap0
+        out.append(min(pos, kw["genome"].size - read.size))
+    return out
+
+
+def write_ont_bam(what, tmp, kw):
+    """(k)'s reads as an aligner leaves them in ont.bam: each read at its
+    place with CIGAR `<len>M`, a read of the reverse strand with flag 0x10
+    and its bases in contig orientation, sorted by position; indexed by
+    the port's `index`.  Returns (path, seconds to write and index)."""
+    t0 = time.perf_counter()
+    names, reads = kw["reads"]
+    recs = sorted(zip(ont_contig_positions(kw), names, reads,
+                      (rev for *_, rev in kw["places"])),
+                  key=lambda r: r[0])
+    bam = tmp / "ont.bam"
+    with tbam.BamWriter(bam, ["chr1"], [kw["genome"].size]) as bw:
+        for pos, name, codes, rev in recs:
+            if rev:
+                codes = (3 - codes[::-1]).astype(np.int8)
+            bw.write(name, tbam.FLAG_REVERSE if rev else 0, codes, ref_id=0,
+                     pos=pos, cigar=[("M", int(codes.size))])
+    check(cli.main(["index", str(bam)]) == 0, f"{what}: index ont.bam")
+    return bam, time.perf_counter() - t0
+
+
+def check_ont_estimates(what, bg, reads):
+    """`preproc`'s estimates of (k)'s sample: the technology, the read
+    length within 5 % of the sample's mean, the mismatch rate within a
+    factor 2 of ONT_ERRORS'.  Returns (read length, depth a copy, mismatch
+    rate); the depth by `check_wgs_estimates`' formula for single reads:
+    the haploid read middles a window times the read length, over the
+    window."""
+    check(bg.seq_info.technology == Technology.NANOPORE,
+          f"{what}: preproc wrote technology {bg.seq_info.technology}")
+    mean_len = float(np.mean([r.size for r in reads]))
+    read_len = bg.seq_info.read_len
+    check(abs(read_len / mean_len - 1) <= 0.05,
+          f"{what}: read length {read_len:.0f}, the sample's {mean_len:.0f}")
+    mism = float(np.exp(bg.err_prof.ln_mismatch))
+    check(0.5 <= mism / ONT_ERRORS[0] <= 2.0,
+          f"{what}: estimated mismatch rate {mism:.5f}, simulated "
+          f"{ONT_ERRORS[0]}")
+    d = bg.depth.depth_distribution(41)
+    return read_len, d.mean() * read_len / bg.depth.window_size, mism
+
+
+def run_ont_preproc(what, tmp, inputs, sample, rec, extra=(),
+                    device_args=()):
+    """`preproc --tech ont -b chr1:1-K_BG --max-reads 2000` of (k), the
+    recorder's phase `preproc`; returns (seconds, log, distributions)."""
+    rec.phase = "preproc"
+    t0 = time.perf_counter()
+    with LogLines() as log:
+        rc = cli.main([*device_args, "preproc", *inputs, "-r",
+                       str(tmp / "ref.fa"), "-o", str(sample), "--tech",
+                       "ont", "-b", f"chr1:1-{K_BG}", "--max-reads", "2000",
+                       *extra])
+    sync()
+    secs = time.perf_counter() - t0
+    rec.phase = None
+    check(rc == 0, f"{what}: preproc {' '.join(extra)} returned {rc}")
+    return secs, log, BgDistr.load(paths.bg_dir(sample) / paths.BG_DISTR)
+
+
+def run_k_path(key, tmp, kw, rec, device_args=()):
+    """(k) from FASTQ (`key` "k": `add`, `preproc --tech ont -b
+    chr1:1-K_BG --max-reads 2000`, `genotype`) or from the indexed BAM ("k-bam":
+    ont.bam written and indexed, `preproc -a ont.bam --tech ont ...`,
+    `genotype -i ont.bam`).  The recorder's phase is `preproc` during
+    `preproc`.  Returns the estimates."""
+    what = f"({key})"
+    locus, (names, reads) = kw["locus"], kw["reads"]
+    t_add = t_write = None
+    if key == "k":
+        tmp.mkdir()
+        fq = tmp / "ont.fq.gz"
+        with gzip.open(fq, "wt", compresslevel=1) as f:
+            for name, seq in zip(names, reads):
+                fastx.write_fastq(f, fastx.Read(name, seq))
+        kw["db"], t_add = add_one_locus(what, tmp, locus, kw["genome"],
+                                        kw["left"].size, device_args)
+        inputs, sample, out_name = ["-i", str(fq)], tmp / "sample", "out_k"
+        kw["fq"] = fq
+    else:
+        bam, t_write = write_ont_bam(what, tmp, kw)
+        inputs, sample, out_name = (["-a", str(bam)], tmp / "sample_bam",
+                                    "out_k_bam")
+        kw["bam"] = bam
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t_pre, log, bg = run_ont_preproc(what, tmp, inputs, sample, rec,
+                                     device_args=device_args)
+    if key == "k":
+        n_bg = int(log.find(r"Recruited (\d+) read"))
+    else:
+        n_bg = log.find(r"Indexed input: fetched (\d+) read")
+        check(n_bg is not None, f"{what}: preproc did not fetch by the index")
+    est = check_ont_estimates(what, bg, reads)
+    q0 = ""
+    if key == "k":
+        # Both packages drop a read as ambiguous (MAPQ under `-q`, 30)
+        # when its two candidate windows give the same alignment, as long
+        # reads' do; with `-q 0` every placed read counts, and the depth
+        # must be the simulated one.
+        t_q0, _, bg0 = run_ont_preproc(f"{what} -q 0", tmp, inputs,
+                                       tmp / "sample_q0", rec, ["-q", "0"],
+                                       device_args)
+        est0 = check_ont_estimates(f"{what} -q 0", bg0, reads)
+        check(abs(est0[1] / ONT_DEPTH - 1) <= 0.25,
+              f"{what} -q 0: estimated depth {est0[1]:.2f}x a copy, "
+              f"simulated {ONT_DEPTH}x")
+        check(est[1] <= est0[1], f"{what}: depth {est[1]:.2f}x at -q 30, "
+              f"{est0[1]:.2f}x at -q 0")
+        q0 = (f"; preproc -q 0 {t_q0:.2f} s (depth {est0[1]:.2f}x a copy, "
+              f"mismatches {100 * est0[2]:.4f} %)")
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with LogLines() as log:
+        rc = cli.main([*device_args, "genotype", "-i", inputs[1], "-d",
+                       str(kw["db"]), "-p", str(sample), "-o",
+                       str(tmp / out_name), "--seed", "1"])
+    sync()
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"{what}: genotype returned {rc}")
+    if key == "k-bam":
+        check(log.find(r"Indexed input: fetching (\d+) locus region") == "1",
+              f"{what}: genotype did not fetch by the index")
+    with gzip.open(paths.locus_dir(tmp / out_name, locus.name)
+                   / paths.RES_JSON, "rt") as f:
+        res = json.load(f)
+    want = sorted(locus.hap_names[i] for i in locus.true_genotype)
+    check(sorted(res.get("genotype", "").split(",")) == want,
+          f"{what}: called {res.get('genotype')}, truth {want}")
+    check(np.isfinite(res["quality"])
+          and np.isfinite(res["options"][0]["lik_mean"]),
+          f"{what}: non-finite result")
+    peak = (torch.cuda.max_memory_allocated() / 2**20
+            if torch.cuda.is_available() else float("nan"))
+    got = rec.recruited[out_name][locus.name]
+    lo, hi = kw["paralog"]
+    place = dict(zip(names, kw["places"]))
+    n_para = sum(place[n][1] < hi and place[n][1] + place[n][2] > lo
+                 for n in got)
+    check(n_para > 0, f"{what}: no read over the paralog was recruited")
+    head = (f"{len(reads)} reads, {sum(r.size for r in reads):,} bases, "
+            f"longest {max(r.size for r in reads):,}; add {t_add:.2f} s"
+            if key == "k" else
+            f"ont.bam written and indexed in {t_write:.2f} s")
+    print(f"main path {what} ONT over the paralog locus "
+          f"({locus.haplotypes[0].size:,} bp widened), command line: {head}, "
+          f"preproc {t_pre:.2f} s ({n_bg} reads "
+          f"{'recruited to' if key == 'k' else 'fetched from'} the "
+          f"background region; read length {est[0]:.0f}, depth "
+          f"{est[1]:.2f}x a copy, mismatches {100 * est[2]:.4f} %){q0}, "
+          f"genotype {secs:.2f} s; {len(got)} reads recruited, {n_para} of "
+          f"them over the paralog; 1/1 res.json.gz names the truth "
+          f"{res['genotype']} (quality {res['quality']:.1f}); peak device "
+          f"memory {peak:.0f} MiB; launches {dict(_kernels.LAUNCHES)}",
+          flush=True)
+    kw.setdefault("estimates", {})[key] = est
+    kw.setdefault("res", {})[key] = res
+
+
+def check_k_recruitment(kw, rec, rp):
+    """(k): the FASTQ run's reads against the host engine's; the BAM run's
+    equal the FASTQ run's on the reads the index fetch yields; the two
+    estimates within 10 % of each other; the two calls equal."""
+    locus, (names, reads) = kw["locus"], kw["reads"]
+    data = {locus.name: G.load_locus(kw["db"], locus.name)}
+    check_against_host(f"(k), all {len(names)} reads", data,
+                       {n: (None, v) for n, v in rec.recruited["out_k"]
+                        .items()},
+                       ((n, r, None) for n, r in zip(names, reads)), rp,
+                       ordered=False)
+    fetched = {name for name, _, _ in G._indexed_read_iter(
+        G._indexed_plan([kw["bam"]]),
+        G._load_ref_intervals(kw["db"], [locus.name]))}
+    fq_reads = set(rec.recruited["out_k"][locus.name])
+    bam_reads = set(rec.recruited["out_k_bam"][locus.name])
+    check(bam_reads == fq_reads & fetched,
+          f"(k-bam): {len(bam_reads)} reads recruited, the FASTQ run's "
+          f"{len(fq_reads & fetched)} among the {len(fetched)} fetched")
+    a, b = kw["estimates"]["k"], kw["estimates"]["k-bam"]
+    for name, x, y in zip(("read length", "depth", "mismatch rate"), a, b):
+        check(abs(y / x - 1) <= 0.10, f"(k-bam): {name} {y:.5g}, FASTQ's "
+              f"{x:.5g}")
+    calls = [kw["res"][k]["genotype"] for k in ("k", "k-bam")]
+    check(calls[0] == calls[1], f"(k): calls {calls} differ")
+    print(f"recruit (k-bam): {len(fetched)} reads fetched over the locus, "
+          f"{len(bam_reads)} recruited, the FASTQ run's reads among them; "
+          f"estimates within 10 % of the FASTQ run's ({a[0]:.0f} / "
+          f"{b[0]:.0f} bases, {a[1]:.2f} / {b[1]:.2f}x, {100 * a[2]:.4f} / "
+          f"{100 * b[2]:.4f} %)", flush=True)
+
+
+def hold_widest_front(rec, key):
+    """The full-width front end on the first 8 rows of path `key`'s widest
+    launch of it."""
+    check((key, "full") in rec.widest,
+          f"({key}): no full-width launch of minimizer_front")
+    reads, k, w, S = rec.widest[(key, "full")]
+    m = compare_front(reads[:8].contiguous(), k, w, S,
+                      f"({key}) widest full-width launch")
+    print(f"({key}) widest launch of minimizer_front (full) "
+          f"{list(reads.shape)} [B, L]: its first {m['shape']['B']} rows, "
+          f"all outputs bit-identical; {m['ms']:.4f} ms (plain "
+          f"{m['plain_ms']:.0f} ms, bound {m['bound_ms']:.4f} ms by "
+          f"{m['bound_by']})", flush=True)
+    return reads, m
+
+
+def hold_ont_launches(rec):
+    """(k): K5 and K1 on the widest launches of its `preproc` and of its
+    `genotype`, K2 on each mode of its `genotype`.  Returns {name:
+    numbers}."""
+    held = {f"full_{key}": hold_widest_front(rec, key)[1]
+            for key in ("k-preproc", "k")}
+    held.update((f"align_{key}", m)
+                for key, m in hold_long_launches(rec, "k").items())
+    held.update((f"{mode}_k", hold_anneal_mode(rec, "k", mode))
+                for mode in ("polish", "anneal"))
+    return held
+
+
+# -- (a-profile): genotype --profile on (a')'s files -------------------------
+
+PROFILED = {"align_banded": "align_banded_kernel",
+            "anneal_chains": "anneal_chains_kernel",
+            "minimizer_front_compact": "minimizer_front_kernel"}
+
+
+def run_profile_cli(tmp, loci, fq1, fq2, device_args=()):
+    """(a-profile): (a')'s files through `genotype --profile <dir>`; every
+    call must equal the truth and (a')'s, and on the card the trace must
+    name at least one launch of K1, K2 and K3."""
+    prof = tmp / "profile"
+    secs, _ = run_genotype_cli("(a-profile) genotype --profile", tmp, loci,
+                               fq1, fq2, "out_profile",
+                               ["--profile", str(prof)], device_args)
+    trace = prof / "trace.json"
+    check(trace.exists(), "(a-profile): no trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = {name: sum(sym in e.get("name", "") for e in kernels)
+              for name, sym in PROFILED.items()}
+    busy_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    if not device_args:
+        for name, n in counts.items():
+            check(n > 0, f"(a-profile): the trace names no launch of {name} "
+                  f"({len(kernels)} kernel events of {len(events)})")
+    print(f"main path (a-profile) command line: genotype --profile "
+          f"{secs:.2f} s; trace.json {trace.stat().st_size / 2**20:.1f} MiB, "
+          f"{len(events)} events, {len(kernels)} kernel launches "
+          f"({busy_ms:.1f} ms of device time), by kernel {counts}; "
+          f"{len(loci)}/{len(loci)} res.json.gz name the truth and equal "
+          f"(a')'s calls; launches {dict(_kernels.LAUNCHES)}", flush=True)
 
 
 class LogLines(logging.Handler):
@@ -2536,7 +2921,7 @@ class Recorder:
             if reads.shape[1] > LONG_ROWS and reads.shape[0]:
                 self.n_align_long[self.path] = \
                     self.n_align_long.get(self.path, 0) + 1
-                if self.path not in ("e", "i") and (
+                if self.path not in ("e", "i", "k", "k-bam") and (
                         self.align_long is None
                         or reads.numel() > self.align_long[0].numel()):
                     self.align_long = args
@@ -2614,7 +2999,10 @@ NEEDS = {"a": ("align_banded", "anneal_chains", FRONT[0]),
          "j": ("align_banded", "anneal_chains", FRONT[0]),
          "a-m16": ("align_banded", "anneal_chains", FRONT[0]),
          "a-priors": ("align_banded", "anneal_chains", FRONT[0]),
-         "a-knobs": ("align_banded", "anneal_chains", FRONT[0])}
+         "a-knobs": ("align_banded", "anneal_chains", FRONT[0]),
+         "a-profile": ("align_banded", "anneal_chains", FRONT[0]),
+         "k": ("align_banded", "anneal_chains", FRONT[1]),
+         "k-bam": ("align_banded", "anneal_chains", FRONT[1])}
 #: kernels that a sample must not launch: (a-seq) and (a-batched) solve
 #: with the sequential and the batched-move engines, which have no kernel of
 #: their own
@@ -2750,13 +3138,19 @@ def main():
     t0 = time.perf_counter()
     hw = build_paralog_sample(np.random.default_rng(0))
     iw = build_hifi_sample(np.random.default_rng(0))
+    # Not seed 0: a fresh generator of seed 0 drew (h)'s ancestor, and its
+    # first draws here would put a copy of the gene into the flank.
+    kw = build_ont_paralog_sample(hw, np.random.default_rng(11))
     print(f"samples (h) and (i): one locus of {PARALOG_LOCUS:,} bp x "
           f"{len(hw['locus'].haplotypes)} haplotypes and its paralog at "
           f"{PARALOG_IDENTITY:.0%} identity, "
           + ", ".join(f"({k}) {len(r[0])} pairs"
                       for k, r in hw["reads"].items())
           + f"; one locus of {HIFI_LOCUS:,} bp x 4 haplotypes, "
-          f"{len(iw['reads'][0])} HiFi-like reads; built in "
+          f"{len(iw['reads'][0])} HiFi-like reads; (k) one locus of "
+          f"{kw['locus'].haplotypes[0].size:,} bp ((h)'s gene widened) on "
+          f"{kw['genome'].size:,} bp, {len(kw['reads'][0])} ONT-like reads "
+          f"of {sum(r.size for r in kw['reads'][1]):,} bases; built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     bg, bg_long = make_bg(), make_bg_long()
@@ -2900,6 +3294,8 @@ def main():
                      ("a-m16", run_option("a-m16")),
                      ("a-priors", run_option("a-priors")),
                      ("a-knobs", run_option("a-knobs")),
+                     ("a-profile", lambda: run_profile_cli(
+                         tmp, panel_loci, fq1, fq2)),
                      ("a_mesh", run_mesh), ("a_batched", run_batched),
                      ("b", run_b), ("b_mesh", run_b_mesh), ("c", run_c),
                      ("d", run_d), ("j", run_j), ("f", run_f),
@@ -2912,6 +3308,9 @@ def main():
                          "h-P1", 1, tmp / "h", hw, rec)),
                      ("h-w", lambda: run_h_w_path(tmp / "h", hw)),
                      ("i", lambda: run_hifi_path(tmp / "i", iw, rec)),
+                     ("k", lambda: run_k_path("k", tmp / "k", kw, rec)),
+                     ("k-bam", lambda: run_k_path("k-bam", tmp / "k", kw,
+                                                  rec)),
                      ("e", run_e)]
         if cards_grid is not None:
             paths_run.insert(4, ("a_mesh_cards", run_mesh_cards))
@@ -2968,6 +3367,7 @@ def main():
             {n: (None, v) for n, v in rec.recruited["out_g"].items()},
             zip(*g_reads), rp)
         check_h_i_recruitment(hw, iw, rec, rp)
+        check_k_recruitment(kw, rec, rp_long)
 
         if want_profile:
             profile_main_path("(b) HLA-scale locus, traced",
@@ -3030,16 +3430,9 @@ def main():
           f" end {int(k1e['got']['end_p'].max()):,}), {k1e['ms']:.3f} ms "
           f"(plain {k1e['plain_ms']:.0f} ms, bound {k1e['bound_ms']:.4f} ms "
           f"by {k1e['bound_by']})", flush=True)
-    reads, k, w, S = rec.widest[("e", "full")]
+    reads, k5e = hold_widest_front(rec, "e")
     check(reads.shape[1] > BIG_READS[0], "(e): widest full-width front-end "
           f"launch at L = {reads.shape[1]}")
-    k5e = compare_front(reads[:8].contiguous(), k, w, S,
-                        "(e) widest full-width launch")
-    print(f"(e) widest launch of minimizer_front (full) "
-          f"{list(reads.shape)} [B, L]: its first {k5e['shape']['B']} rows, "
-          f"all outputs bit-identical; {k5e['ms']:.4f} ms (plain "
-          f"{k5e['plain_ms']:.0f} ms, bound {k5e['bound_ms']:.4f} ms by "
-          f"{k5e['bound_by']})", flush=True)
     largest = rec.largest_anneal()
     check(set(largest) == {"anneal", "polish"},
           f"annealer modes on the main path: {sorted(largest)}")
@@ -3059,7 +3452,8 @@ def main():
               f"by {m['bound_by']})", flush=True)
 
     k2_ploidy = hold_ploidy_launches(rec)
-    k1i = hold_hifi_launches(rec)
+    k1i = hold_long_launches(rec, "i")
+    held_k = hold_ont_launches(rec)
 
     def launch_size(mode):
         shape = k2_modes[mode]["shape"]
@@ -3108,7 +3502,9 @@ def main():
                       "locityper_tpu/ops/align_pallas.py:301", k4,
                       rows_over_65536=numbers(k1e),
                       hifi_preproc=numbers(k1i["i-preproc"]),
-                      hifi_genotype=numbers(k1i["i"]))
+                      hifi_genotype=numbers(k1i["i"]),
+                      ont_preproc=numbers(held_k["align_k-preproc"]),
+                      ont_genotype=numbers(held_k["align_k"]))
     long_rows["launches_by_path"] = {key: rec.n_align_long.get(key, 0)
                                      for key in launches}
     long_rows["launches"] = sum(long_rows["launches_by_path"].values())
@@ -3124,7 +3520,9 @@ def main():
                   rounds_per_batch=m["rounds_per_batch"],
                   **({"whole_ms": m["whole_ms"]}
                      if m.get("whole_ms") is not None else {}))
-                  for mode, m in {**k2_modes, **k2_ploidy}.items()}),
+                  for mode, m in {**k2_modes, **k2_ploidy,
+                                  "polish_k": held_k["polish_k"],
+                                  "anneal_k": held_k["anneal_k"]}.items()}),
         entry("minimizer_front", FRONT, "minimizer_front.cu",
               "locityper_tpu/ops/recruit.py:358", k3["compact"],
               entries={
@@ -3135,7 +3533,10 @@ def main():
                                             launches=n_k16)),
                   "full": entry(FRONT[1], FRONT[1:], "minimizer_front.cu",
                                 "locityper_tpu/ops/recruit.py:316",
-                                k3["full"], rows_of_131072=numbers(k5e))})]}),
+                                k3["full"], rows_of_131072=numbers(k5e),
+                                ont_preproc=numbers(
+                                    held_k["full_k-preproc"]),
+                                ont_genotype=numbers(held_k["full_k"]))})]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
