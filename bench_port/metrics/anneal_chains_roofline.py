@@ -1,0 +1,8 @@
+"""anneal_chains_roofline: the kernel's share of its roofline over the traced
+window: the sum over its launches of the least time the card could take
+(roofline.anneal_chains's operations and bytes against the published peaks) over
+the sum of its device time in the profiler's trace."""
+
+
+def read(trace):
+    return trace.roofline_pct("anneal_chains")
