@@ -27,7 +27,7 @@ from ..seq.contigs import ContigSet
 from ..seq.counts import KmerCounts
 from ..seq.recruit import RecruitParams, TargetIndex, recruit_any
 from ..solvers.solve import Scheme
-from ..utils import paths
+from ..utils import paths, spans
 from ..utils.io import Rerun, write_success
 from ..utils.logging import Progress, get_logger
 
@@ -472,6 +472,8 @@ def recruit_reads(loci: dict, read_iter, recruit_params: RecruitParams,
         flush_long(L, buf)
     resolve_pending(keep=0)
     speed = progress.final()
+    spans.count("pairs_parsed", progress.processed)
+    spans.count("pairs_recruited", progress.recruited)
     return out, speed
 
 
@@ -499,16 +501,18 @@ def recruit_reads_fast(loci: dict, path1, path2, recruit_params: RecruitParams,
                              probe_fastq_max_len, _bucket_len)
 
     device = resolve_device(device)
-    index = TargetIndex(recruit_params)
-    order = list(loci)
-    for name in order:
-        index.add_locus(loci[name].contig_set, loci[name].kmer_counts)
-    index.finalize()
-    dev = DeviceIndex.from_index(index)
+    with spans.span("recruit.index"):
+        index = TargetIndex(recruit_params)
+        order = list(loci)
+        for name in order:
+            index.add_locus(loci[name].contig_set, loci[name].kmer_counts)
+        index.finalize()
+        dev = DeviceIndex.from_index(index)
     logger.info("Recruitment index: %d minimizers over %d loci (device)",
                 index.keys.size, index.n_loci)
     if max_len is None:
-        max_len = _bucket_len(probe_fastq_max_len((path1, path2)))
+        with spans.span("recruit.parse"):
+            max_len = _bucket_len(probe_fastq_max_len((path1, path2)))
     while True:
         try:
             return _recruit_fast_pass(order, loci, dev, path1, path2,
@@ -556,22 +560,24 @@ def _recruit_fast_pass(order, loci, dev, path1, path2, subsample, seed,
         # hit are unpacked — the any() test runs on the packed words
         # directly.  m1/m2 live in the pending entry until here: recruited
         # rows are copied out of them after the decision has arrived.
-        packed = res.numpy()[:count]
-        live = packed.any(axis=1)
-        if keep is not None:
-            live &= keep
-        rows = np.nonzero(live)[0]
-        rec = int(rows.size)
-        if rec:
-            hits = unpack_decisions(packed[rows], len(order))
-            ri, li = np.nonzero(hits)
-            cache = {int(i): (m1[i, :l1[i]].copy(), m2[i, :l2[i]].copy())
-                     for i in rows}
-            for i, lx in zip(rows[ri], li):
-                pairs, nms = out[order[lx]]
-                pairs.append(cache[int(i)])
-                nms.append(names[i])
-        progress.add(count, rec)
+        with spans.span("recruit.decide"):
+            packed = res.numpy()[:count]
+        with spans.span("recruit.scatter"):
+            live = packed.any(axis=1)
+            if keep is not None:
+                live &= keep
+            rows = np.nonzero(live)[0]
+            rec = int(rows.size)
+            if rec:
+                hits = unpack_decisions(packed[rows], len(order))
+                ri, li = np.nonzero(hits)
+                cache = {int(i): (m1[i, :l1[i]].copy(), m2[i, :l2[i]].copy())
+                         for i in rows}
+                for i, lx in zip(rows[ri], li):
+                    pairs, nms = out[order[lx]]
+                    pairs.append(cache[int(i)])
+                    nms.append(names[i])
+            progress.add(count, rec)
 
     import time as _time
 
@@ -603,15 +609,21 @@ def _recruit_fast_pass(order, loci, dev, path1, path2, subsample, seed,
     # Parse in a background thread (zlib + the native parser release the
     # GIL): batch N+1 decompresses/parses while this thread scatters N-1
     # and feeds the device with N.
-    for names, m1, l1, m2, l2, count in prefetch_iter(
-            fast_paired_batches(path1, path2, batch=batch,
-                                max_len=max_len), depth=2):
-        keep = (rng.random(count) < subsample) if subsample is not None \
-            else None
-        if first_scatter[0] is None and not pending:
-            first_scatter[0] = _time.perf_counter()
-        pending.append((names, m1, l1, m2, l2, count, keep,
-                        dispatch(m1[:count], m2[:count])))
+    batches = prefetch_iter(fast_paired_batches(path1, path2, batch=batch,
+                                                max_len=max_len), depth=2)
+    while True:
+        with spans.span("recruit.parse"):
+            item = next(batches, None)
+        if item is None:
+            break
+        names, m1, l1, m2, l2, count = item
+        with spans.span("recruit.dispatch"):
+            keep = (rng.random(count) < subsample) if subsample is not None \
+                else None
+            if first_scatter[0] is None and not pending:
+                first_scatter[0] = _time.perf_counter()
+            pending.append((names, m1, l1, m2, l2, count, keep,
+                            dispatch(m1[:count], m2[:count])))
         # Pipeline depth 3: the upload of batch N and the download of
         # batch N-2's decisions overlap the device pass of batch N-1.
         while len(pending) > 3:
@@ -619,6 +631,8 @@ def _recruit_fast_pass(order, loci, dev, path1, path2, subsample, seed,
     while pending:
         scatter_first_aware(pending.pop(0))
     speed = progress.final()
+    spans.count("pairs_parsed", progress.processed)
+    spans.count("pairs_recruited", progress.recruited)
     if stats is not None:
         stats["records"] = progress.processed
     return out, speed
@@ -785,7 +799,20 @@ def _read_iter(inputs, interleaved, reference=None):
                 yield r.name, r.seq, None
 
 
+#: Counter of the call -> kernel of `_kernels.LAUNCHES` whose launches it
+#: takes.
+LAUNCH_COUNTERS = {"k1_launches": "align_banded",
+                   "k2_launches": "anneal_chains",
+                   "k3_launches": "minimizer_front_compact"}
+
+
 def run(args):
+    """One `genotype` call inside the span recorder's call (utils/spans.py),
+    whose close logs the call's seconds by layer and step and its counters;
+    with `--profile`, under `torch.profiler`, each span annotating the
+    trace."""
+    from .. import _kernels
+    prof = None
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
@@ -795,115 +822,131 @@ def run(args):
         prof_dir.mkdir(parents=True, exist_ok=True)
         prof = profile(activities=activities)
         prof.start()
-        try:
-            return _run(args)
-        finally:
+    try:
+        with spans.call("genotype", annotate=prof is not None) as call:
+            launches0 = dict(_kernels.LAUNCHES)
+            try:
+                return _run(args)
+            finally:
+                for counter, kernel in LAUNCH_COUNTERS.items():
+                    spans.count(counter, _kernels.LAUNCHES[kernel]
+                                - launches0[kernel])
+    finally:
+        logger.info("%s", spans.summary(call))
+        if prof is not None:
             prof.stop()
             prof.export_chrome_trace(str(prof_dir / "trace.json"))
             logger.info("Profiler trace written to %s",
                         prof_dir / "trace.json")
-    return _run(args)
 
 
 def _run(args):
-    from .._kernels import resolve_device
-    device = resolve_device(getattr(args, "device", None))
-    if args.in_list:
-        listed = [l.strip() for l in open(args.in_list)
-                  if l.strip() and not l.startswith("#")]
-        if not listed:
-            raise ValueError(f"{args.in_list}: no input files listed")
-        args.input = (args.input or []) + listed
-    if not args.input:
-        raise ValueError("no input reads: provide -i/--input or -I/--in-list")
-    db = Path(args.db)
-    out = Path(args.output)
-    rerun = Rerun.parse(args.rerun)
-    bg = BgDistr.load(paths.bg_dir(args.preproc) / paths.BG_DISTR)
-    tech = bg.seq_info.technology
-    _check_params_staleness(args, out, rerun)
+    with spans.span("entry.load"):
+        from .._kernels import resolve_device
+        device = resolve_device(getattr(args, "device", None))
+        if args.in_list:
+            listed = [l.strip() for l in open(args.in_list)
+                      if l.strip() and not l.startswith("#")]
+            if not listed:
+                raise ValueError(f"{args.in_list}: no input files listed")
+            args.input = (args.input or []) + listed
+        if not args.input:
+            raise ValueError(
+                "no input reads: provide -i/--input or -I/--in-list")
+        db = Path(args.db)
+        out = Path(args.output)
+        rerun = Rerun.parse(args.rerun)
+        bg = BgDistr.load(paths.bg_dir(args.preproc) / paths.BG_DISTR)
+        tech = bg.seq_info.technology
+        _check_params_staleness(args, out, rerun)
 
-    # Multi-host: loci split across processes (no collective on any tensor;
-    # parallel/multihost.py); cards within a host split each batch over
-    # the grid.  Cost-weighted LPT partition: per-locus wall time is
-    # dominated by genotype count x haplotype length (align + solve legs),
-    # so a panel mixing 6-hap and 300-hap loci leaves no round-robin
-    # stragglers (genotype.rs:1278-1298 outer loop).
-    from ..parallel.multihost import maybe_init_distributed, shard_loci
-    multi = maybe_init_distributed()
-    all_names = args.loci if args.loci else list_loci(db)
-    costs = [_locus_cost_estimate(db, n) for n in all_names] if multi else None
-    locus_names = shard_loci(all_names, costs)
-    loci = {}
-    todo = []
-    for name in locus_names:
-        ldir = out / paths.LOCI_DIR / name
-        if not rerun.prepare_dir(ldir, keep=(RECRUITED_FQ,)):
-            logger.info("[%s] already genotyped, skipping", name)
-            continue
-        data = load_locus(db, name)
-        if args.leave_out:
-            data = _leave_out(data, set(args.leave_out), name)
-        loci[name] = data
-        todo.append(name)
-    if not todo:
-        logger.info("Nothing to do")
-        return 0
+        # Multi-host: loci split across processes (no collective on any
+        # tensor; parallel/multihost.py); cards within a host split each
+        # batch over the grid.  Cost-weighted LPT partition: per-locus wall
+        # time is dominated by genotype count x haplotype length (align +
+        # solve legs), so a panel mixing 6-hap and 300-hap loci leaves no
+        # round-robin stragglers (genotype.rs:1278-1298 outer loop).
+        from ..parallel.multihost import maybe_init_distributed, shard_loci
+        multi = maybe_init_distributed()
+        all_names = args.loci if args.loci else list_loci(db)
+        costs = ([_locus_cost_estimate(db, n) for n in all_names] if multi
+                 else None)
+        locus_names = shard_loci(all_names, costs)
+        loci = {}
+        todo = []
+        for name in locus_names:
+            ldir = out / paths.LOCI_DIR / name
+            if not rerun.prepare_dir(ldir, keep=(RECRUITED_FQ,)):
+                logger.info("[%s] already genotyped, skipping", name)
+                continue
+            data = load_locus(db, name)
+            if args.leave_out:
+                data = _leave_out(data, set(args.leave_out), name)
+            loci[name] = data
+            todo.append(name)
+        if not todo:
+            logger.info("Nothing to do")
+            return 0
 
-    mk, mw = (15, 10)
-    if args.minimizer:
-        mk, mw = (int(x) for x in args.minimizer.split(","))
-    rp = RecruitParams(
-        minimizer_k=mk, minimizer_w=mw,
-        match_frac=(args.match_frac if args.match_frac is not None else
-                    tech.default_match_frac(bg.insert_distr.is_paired_end)),
-        match_length=args.match_len, thresh_kmer_count=args.kmer_thresh)
-    # Resume from per-locus checkpoints where a previous (crashed) run
-    # already recruited (genotype.rs:662-682).
-    recruited = {}
-    need = {}
-    for name in todo:
-        ldir = out / paths.LOCI_DIR / name
-        if (ldir / RECRUITED_FQ).exists():
-            recruited[name] = _load_recruited(ldir)
-            logger.info("[%s] reusing %d recruited read(pair)s from "
-                        "checkpoint %s", name, len(recruited[name][0]),
-                        ldir / RECRUITED_FQ)
-        else:
-            need[name] = loci[name]
+        mk, mw = (15, 10)
+        if args.minimizer:
+            mk, mw = (int(x) for x in args.minimizer.split(","))
+        rp = RecruitParams(
+            minimizer_k=mk, minimizer_w=mw,
+            match_frac=(
+                args.match_frac if args.match_frac is not None else
+                tech.default_match_frac(bg.insert_distr.is_paired_end)),
+            match_length=args.match_len, thresh_kmer_count=args.kmer_thresh)
+        # Resume from per-locus checkpoints where a previous (crashed) run
+        # already recruited (genotype.rs:662-682).
+        recruited = {}
+        need = {}
+        for name in todo:
+            ldir = out / paths.LOCI_DIR / name
+            if (ldir / RECRUITED_FQ).exists():
+                recruited[name] = _load_recruited(ldir)
+                logger.info("[%s] reusing %d recruited read(pair)s from "
+                            "checkpoint %s", name, len(recruited[name][0]),
+                            ldir / RECRUITED_FQ)
+            else:
+                need[name] = loci[name]
     if need:
-        from ..seq.fastx import is_fastq_files
-        if (len(args.input) == 2 and tech.are_short_reads
-                and not _is_alignment_file(args.input[0])
-                and not _is_alignment_file(args.input[1])
-                and is_fastq_files(args.input)):
-            rec, _ = recruit_reads_fast(
-                need, args.input[0], args.input[1], rp,
-                subsample=args.subsample, seed=args.seed, device=device)
-        else:
-            reads_iter = None
-            ref_fa = getattr(args, "reference", None)
-            plans = _indexed_plan(args.input, reference=ref_fa)
-            if plans is not None:
-                intervals = _load_ref_intervals(db, list(need))
-                if intervals is not None:
-                    logger.info("Indexed input: fetching %d locus region(s) "
-                                "+ unplaced tail from %d file(s) instead of "
-                                "a full scan", len(intervals), len(plans))
-                    reads_iter = _indexed_read_iter(plans, intervals,
-                                                    reference=ref_fa)
-            if reads_iter is None:
-                reads_iter = _read_iter(
-                    args.input, args.interleaved,
-                    reference=getattr(args, "reference", None))
-            import contextlib
-            with contextlib.closing(reads_iter):
-                rec, _ = recruit_reads(need, reads_iter, rp,
-                                       subsample=args.subsample,
-                                       seed=args.seed, device=device)
+        with spans.span("recruit"):
+            from ..seq.fastx import is_fastq_files
+            if (len(args.input) == 2 and tech.are_short_reads
+                    and not _is_alignment_file(args.input[0])
+                    and not _is_alignment_file(args.input[1])
+                    and is_fastq_files(args.input)):
+                rec, _ = recruit_reads_fast(
+                    need, args.input[0], args.input[1], rp,
+                    subsample=args.subsample, seed=args.seed, device=device)
+            else:
+                reads_iter = None
+                ref_fa = getattr(args, "reference", None)
+                plans = _indexed_plan(args.input, reference=ref_fa)
+                if plans is not None:
+                    intervals = _load_ref_intervals(db, list(need))
+                    if intervals is not None:
+                        logger.info("Indexed input: fetching %d locus "
+                                    "region(s) + unplaced tail from %d "
+                                    "file(s) instead of a full scan",
+                                    len(intervals), len(plans))
+                        reads_iter = _indexed_read_iter(plans, intervals,
+                                                        reference=ref_fa)
+                if reads_iter is None:
+                    reads_iter = _read_iter(
+                        args.input, args.interleaved,
+                        reference=getattr(args, "reference", None))
+                import contextlib
+                with contextlib.closing(reads_iter):
+                    rec, _ = recruit_reads(need, reads_iter, rp,
+                                           subsample=args.subsample,
+                                           seed=args.seed, device=device)
         recruited.update(rec)
-        for name in need:
-            _save_recruited(out / paths.LOCI_DIR / name, *recruited[name])
+        with spans.span("entry.write"):
+            for name in need:
+                _save_recruited(out / paths.LOCI_DIR / name,
+                                *recruited[name])
 
     if args.stop_after == "recruit":
         for name in todo:
@@ -984,9 +1027,10 @@ def _run(args):
 
         panel = [(recruited[n][0], recruited[n][1], loci[n].contig_set,
                   loci[n].kmer_counts, _panel_explicit(n)) for n in todo]
-        built = build_all_alignments_panel(
-            panel, bg, edit_cache, params, device=device,
-            mesh=resolve_mesh("auto", device))
+        with spans.span("align"):
+            built = build_all_alignments_panel(
+                panel, bg, edit_cache, params, device=device,
+                mesh=resolve_mesh("auto", device))
         panel_alns = dict(zip(todo, built))
         logger.info("Aligned %d loci in one device stream (%d reads)",
                     len(todo), sum(s["total"] for _, s in built))
@@ -1025,9 +1069,10 @@ def _run(args):
                 if (args.out_sams or args.out_bams) else None,
                 sol_path=(ldir / paths.SOL_CSV) if args.debug else None,
                 debug=args.debug, out_dir=ldir))
-        solved = genotype_panel(entries, bg, params=params, scheme=scheme,
-                                seed=args.seed, ploidy=args.ploidy,
-                                device=device)
+        with spans.span("solve"):
+            solved = genotype_panel(entries, bg, params=params, scheme=scheme,
+                                    seed=args.seed, ploidy=args.ploidy,
+                                    device=device)
         panel_results = dict(zip(todo, solved))
 
     failures = 0
@@ -1053,13 +1098,14 @@ def _run(args):
                 logger.exception("[%s] genotyping failed", name)
                 failures += 1
                 continue
-        with gzip.open(ldir / paths.RES_JSON, "wt") as f:
-            json.dump(result.to_json(loci[name].contig_set.contigs.names), f,
-                      indent=1)
-        write_success(ldir)
-        # Locus done — drop its recruited-read checkpoint
-        # (genotype.rs:1153-1156).
-        (ldir / RECRUITED_FQ).unlink(missing_ok=True)
+        with spans.span("entry.write"):
+            with gzip.open(ldir / paths.RES_JSON, "wt") as f:
+                json.dump(result.to_json(loci[name].contig_set.contigs.names),
+                          f, indent=1)
+            write_success(ldir)
+            # Locus done — drop its recruited-read checkpoint
+            # (genotype.rs:1153-1156).
+            (ldir / RECRUITED_FQ).unlink(missing_ok=True)
         if result.genotypes:
             logger.info("[%s] GT = %s, quality %.1f", name,
                         result.to_json(loci[name].contig_set.contigs.names)

@@ -33,6 +33,7 @@ from ..ops import align as A
 from ..seq.contigs import ContigSet
 from ..seq.counts import KmerCounts
 from ..seq.kmers import canonical_kmers, minimizers32
+from ..utils import spans
 from . import Params
 
 MAX_UNUSED_ALNS = 2   # locs.rs:730
@@ -470,6 +471,7 @@ def dispatch_align_batches(reads, lens, wins, score_vec, band,
     With `mesh`, every batch is split over the grid's shards, each shard's
     copy marked by an event on its own device; `device` is then unused."""
     J, L = reads.shape
+    spans.count("k1_jobs", J)
     if batch is None:
         # ~6 M read bases per launch: bounds the device buffers, any J runs.
         batch = max(512, min(32768, (6 << 20) // max(int(L), 1)))
@@ -838,9 +840,10 @@ def build_all_alignments_panel(panel, bg: BgDistr, edit_cache: EditDistCache,
                     for m in pair if m is not None), default=64)
     L = -(-max_read // 64) * 64
 
-    def cand_group(idxs):
+    def cand_group(idxs, layer):
         """Host stage 1: build generators + candidate voting (to the first
-        yield) for one locus group."""
+        yield) for one locus group, on the worker thread (`layer`: the
+        parent of its spans)."""
         gens, reqs = [], []
         for i in idxs:
             read_pairs, names, contig_set, kmer_counts = panel[i][:4]
@@ -848,7 +851,7 @@ def build_all_alignments_panel(panel, bg: BgDistr, edit_cache: EditDistCache,
             g = _build_all_alignments_gen(
                 read_pairs, names, contig_set, kmer_counts, bg, edit_cache,
                 params, minimizer_k, minimizer_w, panel_L=L,
-                explicit_weights=ew)
+                explicit_weights=ew, span_parent=layer)
             reqs.append(next(g))
             gens.append(g)
         return idxs, gens, reqs
@@ -875,24 +878,29 @@ def build_all_alignments_panel(panel, bg: BgDistr, edit_cache: EditDistCache,
         post-alignment."""
         results = [None] * len(gens)
         if pending is not None:
-            res = collect_align_batches(pending)
+            with spans.span("align.wait"):
+                res = collect_align_batches(pending)
             off = 0
             for j, n in zip(live, sizes):
                 results[j] = {k: v[off:off + n] for k, v in res.items()}
                 off += n
-        for j, g in enumerate(gens):
-            out[idxs[j]] = g.send(results[j])
+        with spans.span("align.post"):
+            for j, g in enumerate(gens):
+                out[idxs[j]] = g.send(results[j])
 
     groups = [list(range(s, min(s + group_size, len(panel))))
               for s in range(0, len(panel), group_size)]
+    layer = spans.current()         # the worker's spans name it
     with ThreadPoolExecutor(max_workers=1) as pool:
-        fut = pool.submit(cand_group, groups[0])
+        fut = pool.submit(cand_group, groups[0], layer)
         prev = None
         for gi in range(len(groups)):
-            idxs, gens, reqs = fut.result()
+            with spans.span("align.wait"):
+                idxs, gens, reqs = fut.result()
             if gi + 1 < len(groups):
-                fut = pool.submit(cand_group, groups[gi + 1])
-            pending, live, sizes = dispatch_group(reqs)
+                fut = pool.submit(cand_group, groups[gi + 1], layer)
+            with spans.span("align.dispatch"):
+                pending, live, sizes = dispatch_group(reqs)
             if prev is not None:
                 finalize_group(*prev)
             prev = (idxs, gens, pending, live, sizes)
@@ -938,50 +946,54 @@ def _build_all_alignments_gen(read_pairs, names, contig_set: ContigSet,
                               edit_cache: EditDistCache, params: Params,
                               minimizer_k: int = 15, minimizer_w: int = 10,
                               panel_L: int | None = None,
-                              explicit_weights=None):
+                              explicit_weights=None, span_parent=None):
     """Coroutine body of `build_all_alignments`: yields ONE device-align
     request (reads, lens, wins, score_vec, band) — or None when no
     candidates — then receives the kernel outputs via .send() and yields
-    the final (AllAlignments, stats)."""
-    is_paired = bg.insert_distr.is_paired_end
-    tweak = params.tweak if params.tweak is not None else 0
-    boundary = params.boundary_size - tweak
-    score_vec = bg.err_prof.score_vec()
-    hap_index = HapMinimizerIndex(contig_set, minimizer_k, minimizer_w)
-    uniq = UniqueKmers(contig_set, kmer_counts,
-                       params.kmer_hard_thresh, params.kmer_soft_thresh)
-    hap_lens = np.fromiter((s.size for s in contig_set.seqs), np.int64,
-                           len(contig_set.seqs))
-    n_haps = len(contig_set.seqs)
-    R = len(read_pairs)
-    stats = dict(total=R, poorly_mapped=0, out_of_bounds=0,
-                 few_kmers=0, n_alns=0)
+    the final (AllAlignments, stats).  Its `align.vote` and `align.jobs`
+    spans name `span_parent` as their parent (the `align` span of a worker
+    thread's caller), or else the innermost span open on their thread."""
+    with spans.span("align.vote", parent=span_parent):
+        is_paired = bg.insert_distr.is_paired_end
+        tweak = params.tweak if params.tweak is not None else 0
+        boundary = params.boundary_size - tweak
+        score_vec = bg.err_prof.score_vec()
+        hap_index = HapMinimizerIndex(contig_set, minimizer_k, minimizer_w)
+        uniq = UniqueKmers(contig_set, kmer_counts,
+                           params.kmer_hard_thresh, params.kmer_soft_thresh)
+        hap_lens = np.fromiter((s.size for s in contig_set.seqs), np.int64,
+                               len(contig_set.seqs))
+        n_haps = len(contig_set.seqs)
+        R = len(read_pairs)
+        stats = dict(total=R, poorly_mapped=0, out_of_bounds=0,
+                     few_kmers=0, n_alns=0)
 
-    # Flatten mates, generate candidates, batch-align.
-    mates = []
-    m_read, m_slot = [], []
-    for r, (c1, c2) in enumerate(read_pairs):
-        mates.append(c1)
-        m_read.append(r)
-        m_slot.append(0)
-        if c2 is not None:
-            mates.append(c2)
+        # Flatten mates, generate candidates, batch-align.
+        mates = []
+        m_read, m_slot = [], []
+        for r, (c1, c2) in enumerate(read_pairs):
+            mates.append(c1)
             m_read.append(r)
-            m_slot.append(1)
-    M = len(mates)
-    m_read = np.array(m_read, np.int64)
-    m_slot = np.array(m_slot, np.int64)
-    has2 = np.fromiter((c2 is not None for _, c2 in read_pairs), bool, R)
+            m_slot.append(0)
+            if c2 is not None:
+                mates.append(c2)
+                m_read.append(r)
+                m_slot.append(1)
+        M = len(mates)
+        m_read = np.array(m_read, np.int64)
+        m_slot = np.array(m_slot, np.int64)
+        has2 = np.fromiter((c2 is not None for _, c2 in read_pairs), bool, R)
 
-    jobs = hap_index.candidates_batch_flat(mates, minimizer_w, params.band,
-                                           params.min_anchor_votes,
-                                           max_per_hap=3)
+        jobs = hap_index.candidates_batch_flat(mates, minimizer_w, params.band,
+                                               params.min_anchor_votes,
+                                               max_per_hap=3)
     if np.asarray(jobs[0]).size == 0:
         _ = yield None                   # resumed by .send(None)
         tbl = MateAlnTable.empty()
     else:
-        reads, lens, wins, meta = _prepare_align_jobs(
-            mates, jobs, contig_set, params.band, L=panel_L)
+        with spans.span("align.jobs", parent=span_parent):
+            reads, lens, wins, meta = _prepare_align_jobs(
+                mates, jobs, contig_set, params.band, L=panel_L)
         res = yield (reads, lens, wins, score_vec, params.band)
         tbl = _finish_align(res, meta, lens)
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..utils import spans
 from .solver import (NEG, SolverConfig, _compact_valid, _gather_candidates,
                      _read_windows, _window_tables)
 
@@ -290,10 +291,13 @@ def anneal_chains(probs, winpk, vcount, nt_ixs, ntc, start_temp, wtab,
     of 32 steps of this launch's chains (rounds / batches is 1 when no move
     of a batch disturbs a later one, and at most 32).  The plain version
     walks step by step and has no such account: with CPU tensors `schedule`
-    must be None."""
+    must be None.  The chains, C, go to the call's counter `k2_chains` on
+    either device (utils/spans.py); a CUDA launch, one for any C > 0, to
+    `_kernels.LAUNCHES`."""
     kw = dict(attempts=attempts, n_steps=n_steps, anneal_steps=anneal_steps,
               dc=dc, ac=ac, plato=plato, ln_init_prob=ln_init_prob,
               seed=int(seed) & 0x7FFFFFFFFFFFFFFF)
+    spans.count("k2_chains", winpk.shape[0])
     if probs.is_cuda:
         return _anneal_chains_cuda(probs, winpk, vcount, nt_ixs, ntc,
                                    start_temp, wtab, assgn0, depth0, cache0,

@@ -22,6 +22,7 @@ from .seq.counts import KmerCounts
 from .seq.recruit import RecruitParams, TargetIndex, recruit_any
 from .solvers.solve import (Genotyping, PanelItem, Scheme, solve_locus,
                             solve_panel)
+from .utils import spans
 from .utils.logging import get_logger
 
 logger = get_logger("pipeline")
@@ -98,10 +99,11 @@ def genotype_locus(locus: LocusData, read_pairs, names, bg: BgDistr,
     if prebuilt_alns is not None:
         all_alns, stats = prebuilt_alns
     else:
-        all_alns, stats = build_all_alignments(
-            read_pairs, names, locus.contig_set, locus.kmer_counts, bg,
-            edit_cache, params, explicit_weights=explicit_weights,
-            device=device, mesh=mesh)
+        with spans.span("align"):
+            all_alns, stats = build_all_alignments(
+                read_pairs, names, locus.contig_set, locus.kmer_counts, bg,
+                edit_cache, params, explicit_weights=explicit_weights,
+                device=device, mesh=mesh)
     logger.info("    [%s] %d/%d reads usable (%d poorly mapped, %d out of "
                 "bounds, %d low weight)", tag, all_alns.n_used,
                 stats["total"], stats["poorly_mapped"], stats["out_of_bounds"],
@@ -111,28 +113,29 @@ def genotype_locus(locus: LocusData, read_pairs, names, bg: BgDistr,
                           predictions=[], quality=0.0, total_reads=0,
                           warnings=["NoReads"]), stats
 
-    prep = _prepare_solve_inputs(locus, all_alns, bg, params, ploidy,
-                                 priors, explicit_weights, debug, out_dir)
-    scheme = scheme or Scheme.default()
-    sol_writer = None
-    gt_names = None
-    if sol_path is not None:
-        from .utils.io import smart_create
-        sol_writer = smart_create(sol_path)
-        sol_writer.write("stage\tgenotype\tscore\n")
-        gt_names = prep["gt_names"]
-    try:
-        result = solve_locus(prep["tensors"], prep["pack"], bg,
-                             prep["genotypes"], prep["priors"], params,
-                             scheme, seed, tag=tag,
-                             dist_matrix=prep["dist_matrix"],
-                             sol_writer=sol_writer, gt_names=gt_names,
-                             mesh=mesh, device=device)
-    finally:
-        if sol_writer is not None:
-            sol_writer.close()
-    _finalize_locus(result, locus, all_alns, prep["tensors"], bg, params,
-                    ploidy, read_pairs, sam_dir)
+    with spans.span("solve"):
+        prep = _prepare_solve_inputs(locus, all_alns, bg, params, ploidy,
+                                     priors, explicit_weights, debug, out_dir)
+        scheme = scheme or Scheme.default()
+        sol_writer = None
+        gt_names = None
+        if sol_path is not None:
+            from .utils.io import smart_create
+            sol_writer = smart_create(sol_path)
+            sol_writer.write("stage\tgenotype\tscore\n")
+            gt_names = prep["gt_names"]
+        try:
+            result = solve_locus(prep["tensors"], prep["pack"], bg,
+                                 prep["genotypes"], prep["priors"], params,
+                                 scheme, seed, tag=tag,
+                                 dist_matrix=prep["dist_matrix"],
+                                 sol_writer=sol_writer, gt_names=gt_names,
+                                 mesh=mesh, device=device)
+        finally:
+            if sol_writer is not None:
+                sol_writer.close()
+        _finalize_locus(result, locus, all_alns, prep["tensors"], bg, params,
+                        ploidy, read_pairs, sam_dir)
     return result, stats
 
 
@@ -265,35 +268,37 @@ def genotype_panel(entries: list, bg: BgDistr, params: Params | None = None,
     results: list = [None] * len(entries)
     items, preps, live = [], [], []
     writers = []
-    for ei, e in enumerate(entries):
-        locus = e["locus"]
-        tag = e.get("tag") or locus.contig_set.tag
-        all_alns, stats = e["prebuilt"]
-        logger.info("    [%s] %d/%d reads usable (%d poorly mapped, %d out "
-                    "of bounds, %d low weight)", tag, all_alns.n_used,
-                    stats["total"], stats["poorly_mapped"],
-                    stats["out_of_bounds"], stats["few_kmers"])
-        if not all_alns.n_used:
-            results[ei] = (Genotyping(
-                tag=tag, genotypes=[], ln_probs=np.empty(0), predictions=[],
-                quality=0.0, total_reads=0, warnings=["NoReads"]), stats)
-            continue
-        prep = _prepare_solve_inputs(
-            locus, all_alns, bg, params, ploidy, e.get("priors"),
-            e.get("explicit_weights"), e.get("debug", 0), e.get("out_dir"))
-        sol_writer = None
-        if e.get("sol_path") is not None:
-            from .utils.io import smart_create
-            sol_writer = smart_create(e["sol_path"])
-            sol_writer.write("stage\tgenotype\tscore\n")
-            writers.append(sol_writer)
-        items.append(PanelItem(
-            tensors=prep["tensors"], pack=prep["pack"],
-            genotypes=prep["genotypes"], priors=prep["priors"], tag=tag,
-            dist_matrix=prep["dist_matrix"], sol_writer=sol_writer,
-            gt_names=prep["gt_names"]))
-        preps.append(prep)
-        live.append(ei)
+    with spans.span("solve.prep"):
+        for ei, e in enumerate(entries):
+            locus = e["locus"]
+            tag = e.get("tag") or locus.contig_set.tag
+            all_alns, stats = e["prebuilt"]
+            logger.info("    [%s] %d/%d reads usable (%d poorly mapped, %d "
+                        "out of bounds, %d low weight)", tag, all_alns.n_used,
+                        stats["total"], stats["poorly_mapped"],
+                        stats["out_of_bounds"], stats["few_kmers"])
+            if not all_alns.n_used:
+                results[ei] = (Genotyping(
+                    tag=tag, genotypes=[], ln_probs=np.empty(0),
+                    predictions=[], quality=0.0, total_reads=0,
+                    warnings=["NoReads"]), stats)
+                continue
+            prep = _prepare_solve_inputs(
+                locus, all_alns, bg, params, ploidy, e.get("priors"),
+                e.get("explicit_weights"), e.get("debug", 0), e.get("out_dir"))
+            sol_writer = None
+            if e.get("sol_path") is not None:
+                from .utils.io import smart_create
+                sol_writer = smart_create(e["sol_path"])
+                sol_writer.write("stage\tgenotype\tscore\n")
+                writers.append(sol_writer)
+            items.append(PanelItem(
+                tensors=prep["tensors"], pack=prep["pack"],
+                genotypes=prep["genotypes"], priors=prep["priors"], tag=tag,
+                dist_matrix=prep["dist_matrix"], sol_writer=sol_writer,
+                gt_names=prep["gt_names"]))
+            preps.append(prep)
+            live.append(ei)
 
     if items:
         try:
@@ -302,14 +307,15 @@ def genotype_panel(entries: list, bg: BgDistr, params: Params | None = None,
         finally:
             for w in writers:
                 w.close()
-        for item_ix, ei in enumerate(live):
-            e = entries[ei]
-            result = solved[item_ix]
-            all_alns, stats = e["prebuilt"]
-            _finalize_locus(result, e["locus"], all_alns,
-                            preps[item_ix]["tensors"], bg, params, ploidy,
-                            e["read_pairs"], e.get("sam_dir"))
-            results[ei] = (result, stats)
+        with spans.span("solve.final"):
+            for item_ix, ei in enumerate(live):
+                e = entries[ei]
+                result = solved[item_ix]
+                all_alns, stats = e["prebuilt"]
+                _finalize_locus(result, e["locus"], all_alns,
+                                preps[item_ix]["tensors"], bg, params, ploidy,
+                                e["read_pairs"], e.get("sam_dir"))
+                results[ei] = (result, stats)
     return results
 
 

@@ -17,7 +17,6 @@ call — instead of sharding genotypes over CPU threads.  With a device grid
 from __future__ import annotations
 
 import re
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -30,6 +29,7 @@ from ..ops import solver as seq_solver
 from ..ops import solver_batched, solver_chains
 from ..ops.solver import NEG, SolverConfig, build_bayes_table
 from ..parallel.mesh import sharded_filter_scores, solver_args_on
+from ..utils import spans
 from ..utils.logging import get_logger
 from ..utils.rng import derive_seed
 
@@ -530,21 +530,21 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
     dev = mesh.shards[0] if mesh is not None \
         else _kernels.resolve_device(device)
     n_loci = len(items)
-    t_c0 = time.monotonic()
-    tensors, pack, offsets = _combine_panel(items)
-    mul_coef = 2.0 if bg_distr.insert_distr.is_paired_end else 1.0
-    bayes = build_bayes_table(bg_distr.depth.distributions,
-                              list(params.alt_cn), mul_coef)
-    # The 9 array operands of every stage call, moved ONCE per solve to
-    # each device.
-    dev_args = solver_args_on(
-        [dev] if mesh is None else mesh.distinct, tensors.hap_prob,
-        tensors.hap_mid, tensors.unmapped_prob, pack.n_windows,
-        pack.reg_start, pack.contig_len, pack.gc_at, pack.weight_at, bayes)
-    k_cap = _candidate_k_cap(tensors, int(items[0].genotypes.shape[-1]))
-    logger.debug("    combine+upload: %.2fs (R=%d, W=%d)",
-                 time.monotonic() - t_c0, tensors.n_reads,
-                 pack.max_windows)
+    with spans.span("solve.prep") as prep:
+        tensors, pack, offsets = _combine_panel(items)
+        mul_coef = 2.0 if bg_distr.insert_distr.is_paired_end else 1.0
+        bayes = build_bayes_table(bg_distr.depth.distributions,
+                                  list(params.alt_cn), mul_coef)
+        # The 9 array operands of every stage call, moved ONCE per solve to
+        # each device.
+        dev_args = solver_args_on(
+            [dev] if mesh is None else mesh.distinct, tensors.hap_prob,
+            tensors.hap_mid, tensors.unmapped_prob, pack.n_windows,
+            pack.reg_start, pack.contig_len, pack.gc_at, pack.weight_at,
+            bayes)
+        k_cap = _candidate_k_cap(tensors, int(items[0].genotypes.shape[-1]))
+    logger.debug("    combine+upload: %.2fs (R=%d, W=%d)", prep.seconds,
+                 tensors.n_reads, pack.max_windows)
 
     def write_sol(it, stage_ix, ix, score):
         if it.sol_writer is not None:
@@ -556,23 +556,26 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
     # Per-locus stage-0 filter on pure alignment likelihood: on the host,
     # or read-sharded over the grid (reference solvers/solve.py:428-436).
     ixs_per: list[np.ndarray] = []
-    for it in items:
-        t = it.tensors
-        n_real = t.n_reads
-        best_aln = np.maximum(t.hap_prob[:, :n_real].max(axis=2),
-                              t.unmapped_prob[None, :n_real])
-        if mesh is not None:
-            pad_r = (-n_real) % mesh.shape["read"]
-            ba = np.pad(best_aln, ((0, 0), (0, pad_r)))  # zeros shift all
-            scores = sharded_filter_scores(
-                mesh, ba, it.genotypes, np.asarray(it.priors, np.float32))
-            ixs_per.append(select_by_scores(scores.astype(np.float64),
-                                            params.filt_diff,
-                                            scheme.stages[0].in_size))
-        else:
-            ixs_per.append(run_filter(it.genotypes, it.priors, best_aln,
-                                      params.filt_diff,
-                                      scheme.stages[0].in_size))
+    with spans.span("solve.filter"):
+        for it in items:
+            spans.count("genotypes_stage0", len(it.genotypes))
+            t = it.tensors
+            n_real = t.n_reads
+            best_aln = np.maximum(t.hap_prob[:, :n_real].max(axis=2),
+                                  t.unmapped_prob[None, :n_real])
+            if mesh is not None:
+                pad_r = (-n_real) % mesh.shape["read"]
+                ba = np.pad(best_aln, ((0, 0), (0, pad_r)))  # zeros shift all
+                scores = sharded_filter_scores(
+                    mesh, ba, it.genotypes,
+                    np.asarray(it.priors, np.float32))
+                ixs_per.append(select_by_scores(scores.astype(np.float64),
+                                                params.filt_diff,
+                                                scheme.stages[0].in_size))
+            else:
+                ixs_per.append(run_filter(it.genotypes, it.priors, best_aln,
+                                          params.filt_diff,
+                                          scheme.stages[0].in_size))
 
     preds_per: list[dict] = [{} for _ in items]
     seed_rows: dict = {}    # (locus, ix) -> permuted best row (init=prev)
@@ -587,116 +590,124 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
         if not active:
             logger.info("    Skipping stage %d for all loci", s_ix + 1)
             continue
-        t0 = time.monotonic()
-        engine = engines[s_ix]
-        random_init = stage.kind == "anneal"
-        cfg = SolverConfig(
-            anneal_steps=stage.anneal_steps,
-            polish_steps=stage.polish_steps,
-            depth_contrib=params.depth_contrib,
-            aln_contrib=params.aln_contrib,
-            prob_diff=params.prob_diff,
-            tweak=int(params.tweak or 0),
-            window_size=pack.window_size,
-            anneal_steps_b=stage.batched_anneal,
-            greedy_sample=(stage.sample
-                           if stage.kind == "greedy" and engine == "seq"
-                           else 0),
-            plato_size=stage.plato,
-        )
-        final_stage = out_size is None
-        # init=prev seeding (chains engine): the NEXT stage wants this
-        # stage's best assignments (permuted slot space) as warm starts.
-        next_seed = (not final_stage and engine == "chains" and mesh is None
-                     and scheme.stages[s_ix + 1].seed_prev)
+        with spans.span(f"solve.stage{s_ix + 1}") as stage_span:
+            engine = engines[s_ix]
+            random_init = stage.kind == "anneal"
+            cfg = SolverConfig(
+                anneal_steps=stage.anneal_steps,
+                polish_steps=stage.polish_steps,
+                depth_contrib=params.depth_contrib,
+                aln_contrib=params.aln_contrib,
+                prob_diff=params.prob_diff,
+                tweak=int(params.tweak or 0),
+                window_size=pack.window_size,
+                anneal_steps_b=stage.batched_anneal,
+                greedy_sample=(stage.sample
+                               if stage.kind == "greedy" and engine == "seq"
+                               else 0),
+                plato_size=stage.plato,
+            )
+            final_stage = out_size is None
+            # init=prev seeding (chains engine): the NEXT stage wants this
+            # stage's best assignments (permuted slot space) as warm starts.
+            next_seed = (not final_stage and engine == "chains"
+                         and mesh is None
+                         and scheme.stages[s_ix + 1].seed_prev)
 
-        # Combined genotype list over the active loci.
-        rows = []                # (locus, local gt ix)
-        g_parts = []
-        for li in active:
-            gts_local = items[li].genotypes[ixs_per[li]]
-            g_parts.append(gts_local.astype(np.int64) + offsets[li])
-            rows.extend((li, int(ix)) for ix in ixs_per[li])
-        all_gts = np.concatenate(g_parts)
+            # Combined genotype list over the active loci.
+            rows = []                # (locus, local gt ix)
+            g_parts = []
+            for li in active:
+                gts_local = items[li].genotypes[ixs_per[li]]
+                g_parts.append(gts_local.astype(np.int64) + offsets[li])
+                rows.extend((li, int(ix)) for ix in ixs_per[li])
+            all_gts = np.concatenate(g_parts)
 
-        run_solver = _stage_runner(engine, stage, cfg, dev_args,
-                                   pack.max_windows, random_init, k_cap)
-        # Two-phase chunk pipeline: launch EVERY chunk (the device queues
-        # them back to back), then fetch and digest in order.  Non-final
-        # stages only rank by likelihood, so their [G, A, R] assignments
-        # stay on the device unless the next stage seeds from them.  Under
-        # a grid every chunk is split over its shards, with no warm start
-        # (as in the reference).
-        pend = []
-        for st, take in _gt_chunks(all_gts.shape[0], gt_batch):
-            chunk_rows = rows[st:st + take]
-            gts = all_gts[st:st + take]
-            stage_seed = derive_seed(seed, s_ix * 100003 + st)
-            if mesh is not None:
-                # Looked up at call time: `chip_smoke.py` wraps it.
-                from ..parallel.mesh import sharded_stage_solver
-                liks, assgns = sharded_stage_solver(mesh, run_solver,
-                                                    stage_seed, gts)
-            else:
-                init_ = None
-                if (stage.seed_prev and engine == "chains"
-                        and all(k in seed_rows for k in chunk_rows)):
-                    init_ = np.stack([seed_rows[k] for k in chunk_rows])
-                    init_ = np.repeat(init_[:, None, :], stage.attempts, 1)
-                liks, assgns = run_solver(stage_seed, gts, dev, init_)
-            pend.append((chunk_rows, gts, liks,
-                         assgns if final_stage or next_seed else None))
-        seed_rows = {}
-        n_gts = 0
-        for chunk_rows, gts, liks, assgns in pend:
-            liks = liks.cpu().numpy().astype(np.float64)
-            if assgns is not None:
-                assgns = assgns.cpu().numpy()
-                if next_seed:
-                    # Keep the best attempt's PERMUTED row per genotype
-                    # for the next stage's warm start.
-                    best_a = np.argmax(liks, axis=1)
-                    for gi, k in enumerate(chunk_rows):
-                        seed_rows[k] = assgns[gi, best_a[gi]]
-                if final_stage and engine == "chains":
-                    # The annealer's assignments live in the valid-first
-                    # permuted slot space; map back to candidate slots (the
-                    # seq and batched engines return candidate slots).
-                    assgns = _unpermute_assignments(assgns, gts, tensors,
-                                                    params)
-            for gi, (li, ix) in enumerate(chunk_rows):
-                it = items[li]
-                row = liks[gi] + it.priors[ix]
-                mean, var = mathx.mean_variance(row)
-                preds_per[li][ix] = Prediction(
-                    mean, var, stage.attempts,
-                    assignments=assgns[gi] if final_stage else None)
-                write_sol(it, s_ix + 1, ix, mean)
-            n_gts += len(chunk_rows)
-        dt = time.monotonic() - t0
+            run_solver = _stage_runner(engine, stage, cfg, dev_args,
+                                       pack.max_windows, random_init, k_cap)
+            # Two-phase chunk pipeline: launch EVERY chunk (the device
+            # queues them back to back), then fetch and digest in order.
+            # Non-final stages only rank by likelihood, so their [G, A, R]
+            # assignments stay on the device unless the next stage seeds
+            # from them.  Under a grid every chunk is split over its shards,
+            # with no warm start (as in the reference).
+            chunks = _gt_chunks(all_gts.shape[0], gt_batch)
+            stage_span.attrs.update(genotypes=all_gts.shape[0],
+                                    chunks=len(chunks))
+            pend = []
+            for st, take in chunks:
+                chunk_rows = rows[st:st + take]
+                gts = all_gts[st:st + take]
+                stage_seed = derive_seed(seed, s_ix * 100003 + st)
+                if mesh is not None:
+                    # Looked up at call time: `chip_smoke.py` wraps it.
+                    from ..parallel.mesh import sharded_stage_solver
+                    liks, assgns = sharded_stage_solver(mesh, run_solver,
+                                                        stage_seed, gts)
+                else:
+                    init_ = None
+                    if (stage.seed_prev and engine == "chains"
+                            and all(k in seed_rows for k in chunk_rows)):
+                        init_ = np.stack([seed_rows[k]
+                                          for k in chunk_rows])
+                        init_ = np.repeat(init_[:, None, :], stage.attempts,
+                                          1)
+                    liks, assgns = run_solver(stage_seed, gts, dev, init_)
+                pend.append((chunk_rows, gts, liks,
+                             assgns if final_stage or next_seed else None))
+            seed_rows = {}
+            n_gts = 0
+            for chunk_rows, gts, liks, assgns in pend:
+                liks = liks.cpu().numpy().astype(np.float64)
+                if assgns is not None:
+                    assgns = assgns.cpu().numpy()
+                    if next_seed:
+                        # Keep the best attempt's PERMUTED row per genotype
+                        # for the next stage's warm start.
+                        best_a = np.argmax(liks, axis=1)
+                        for gi, k in enumerate(chunk_rows):
+                            seed_rows[k] = assgns[gi, best_a[gi]]
+                    if final_stage and engine == "chains":
+                        # The annealer's assignments live in the valid-first
+                        # permuted slot space; map back to candidate slots
+                        # (the seq and batched engines return candidate
+                        # slots).
+                        assgns = _unpermute_assignments(assgns, gts,
+                                                        tensors, params)
+                for gi, (li, ix) in enumerate(chunk_rows):
+                    it = items[li]
+                    row = liks[gi] + it.priors[ix]
+                    mean, var = mathx.mean_variance(row)
+                    preds_per[li][ix] = Prediction(
+                        mean, var, stage.attempts,
+                        assignments=assgns[gi] if final_stage else None)
+                    write_sol(it, s_ix + 1, ix, mean)
+                n_gts += len(chunk_rows)
+            if out_size is not None:
+                for li in active:
+                    ixs_per[li] = discard_improbable(
+                        ixs_per[li], preds_per[li], items[li].genotypes,
+                        params.prob_thresh, out_size)
+        spans.count(f"genotypes_stage{s_ix + 1}", n_gts)
         logger.info("    Stage %d (%s): %d loci, %d genotypes x %d attempts "
                     "in %.2fs (%.4f s/gt)", s_ix + 1, stage.kind,
-                    len(active), n_gts, stage.attempts, dt,
-                    dt / max(n_gts, 1))
-        if out_size is not None:
-            for li in active:
-                ixs_per[li] = discard_improbable(
-                    ixs_per[li], preds_per[li], items[li].genotypes,
-                    params.prob_thresh, out_size)
+                    len(active), n_gts, stage.attempts, stage_span.seconds,
+                    stage_span.seconds / max(n_gts, 1))
 
-    results = []
-    for li, it in enumerate(items):
-        result = produce_result(ixs_per[li], preds_per[li], it.genotypes,
-                                it.tag, it.tensors.n_reads, params)
-        if it.dist_matrix is not None and result.genotypes:
-            dists = [0.0 if i == 0 else
-                     genotype_distance(result.genotypes[0], gt,
-                                       it.dist_matrix)
-                     for i, gt in enumerate(result.genotypes)]
-            probs = np.exp(result.ln_probs)
-            result.weighted_dist = float(
-                np.sum(probs * np.array(dists))
-                / max(np.sum(probs), 1e-300))
-            result.distances = dists
-        results.append(result)
+    with spans.span("solve.final"):
+        results = []
+        for li, it in enumerate(items):
+            result = produce_result(ixs_per[li], preds_per[li], it.genotypes,
+                                    it.tag, it.tensors.n_reads, params)
+            if it.dist_matrix is not None and result.genotypes:
+                dists = [0.0 if i == 0 else
+                         genotype_distance(result.genotypes[0], gt,
+                                           it.dist_matrix)
+                         for i, gt in enumerate(result.genotypes)]
+                probs = np.exp(result.ln_probs)
+                result.weighted_dist = float(
+                    np.sum(probs * np.array(dists))
+                    / max(np.sum(probs), 1e-300))
+                result.distances = dists
+            results.append(result)
     return results

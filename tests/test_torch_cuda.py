@@ -408,3 +408,34 @@ def test_batched_engine_reaches_ilp_optimum(card, device):
         best = float(liks.max())
         assert best == pytest.approx(ilp_lik, abs=0.05)
         assert best <= ilp_lik + 0.05
+
+
+def test_solver_counts_one_launch_a_chunk(card):
+    """The call's counters: `k2_chains` holds every chain handed to the
+    annealer, `k2_launches` (taken from `_kernels.LAUNCHES`, as `genotype`
+    takes it) one launch for each chunk of each stage."""
+    from types import SimpleNamespace
+
+    from locityper_tpu_torch import _kernels
+    from locityper_tpu_torch.mathx.distr import NBinom
+    from locityper_tpu_torch.solvers.solve import Scheme, solve_locus
+    from locityper_tpu_torch.utils import spans
+    tensors, pack, _, params = ilp_problem(1)
+    bg = SimpleNamespace(
+        insert_distr=SimpleNamespace(is_paired_end=True),
+        depth=SimpleNamespace(distributions=[NBinom(4.0, 0.45)] * 101))
+    scheme = Scheme.parse(["greedy:i=5k,a=1", "anneal:i=3,a=4,n=500,p=200"])
+    gts = np.array(ALL_GTS, np.int32)
+    launches0 = _kernels.LAUNCHES["anneal_chains"]
+    with spans.call("genotype") as root:
+        solve_locus(tensors, pack, bg, gts, np.zeros(len(gts)), params,
+                    scheme, 5, gt_batch=2, device=card)
+        spans.count("k2_launches",
+                    _kernels.LAUNCHES["anneal_chains"] - launches0)
+    stages = [s for s in spans.snapshot()
+              if s.call == root.id and s.name.startswith("solve.stage")]
+    attempts = {"solve.stage1": 1, "solve.stage2": 4}
+    assert root.attrs["k2_launches"] == sum(s.attrs["chunks"]
+                                            for s in stages) >= 4
+    assert root.attrs["k2_chains"] == sum(
+        s.attrs["genotypes"] * attempts[s.name] for s in stages)

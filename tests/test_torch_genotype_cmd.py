@@ -425,11 +425,123 @@ def test_cuda_is_the_default_device(world, tmp_path):
 
 
 def test_profile_writes_a_chrome_trace(world, tmp_path):
+    """The trace holds the call's steps as `record_function` ranges."""
     out, prof = tmp_path / "out", tmp_path / "prof"
     assert torch_cli("genotype", *world.base, "-o", out, "--loci", "GENE1",
                      "--stop-after", "recruit", "--profile", prof) == 0
     trace = json.loads((prof / "trace.json").read_text())
     assert trace["traceEvents"]
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"genotype", "entry.load", "recruit", "recruit.index",
+            "recruit.parse", "recruit.dispatch", "recruit.decide",
+            "recruit.scatter", "entry.write"} <= names
+
+
+def union_s(intervals):
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        total += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return total
+
+
+@pytest.fixture(scope="module")
+def traced_call(world, tmp_path_factory):
+    """One panel-path call on the CPU, with what its recruitment returned,
+    the rows given to the aligner and the chains of every annealer call
+    recorded beside it; its closed spans, the call's last."""
+    from locityper_tpu_torch.model import locs
+    from locityper_tpu_torch.ops import solver_chains
+    from locityper_tpu_torch.utils import spans
+    seen = SimpleNamespace(recruited=None, k1_rows=[], chains=[])
+    mp = pytest.MonkeyPatch()
+    orig_rec, orig_disp = TG.recruit_reads_fast, locs.dispatch_align_batches
+    orig_anneal = solver_chains.anneal_chains
+
+    def recruit(*a, **k):
+        seen.recruited, speed = orig_rec(*a, **k)
+        return seen.recruited, speed
+
+    def dispatch(reads, *a, **k):
+        seen.k1_rows.append(reads.shape[0])
+        return orig_disp(reads, *a, **k)
+
+    def anneal(probs, winpk, *a, **k):
+        seen.chains.append(winpk.shape[0])
+        return orig_anneal(probs, winpk, *a, **k)
+
+    mp.setattr(TG, "recruit_reads_fast", recruit)
+    mp.setattr(locs, "dispatch_align_batches", dispatch)
+    mp.setattr(solver_chains, "anneal_chains", anneal)
+    try:
+        out = tmp_path_factory.mktemp("spans") / "out"
+        assert torch_cli("genotype", *world.base, "-o", out, *LIGHT) == 0
+    finally:
+        mp.undo()
+    kept = spans.snapshot()
+    root = kept[-1]
+    assert root.name == "genotype"
+    seen.root = root
+    seen.spans = [s for s in kept if s.call == root.id and s is not root]
+    return seen
+
+
+def test_the_call_leaves_a_well_formed_tree(traced_call):
+    root, kept = traced_call.root, traced_call.spans
+    assert root.parent is None and root.call == root.id
+    names = {s.name for s in kept}
+    assert {"entry.load", "entry.write", "recruit", "recruit.index",
+            "recruit.parse", "recruit.dispatch", "recruit.decide",
+            "recruit.scatter", "align", "align.vote", "align.jobs",
+            "align.wait", "align.dispatch", "align.post", "solve",
+            "solve.prep", "solve.filter", "solve.stage1", "solve.stage2",
+            "solve.final"} <= names
+    for s in kept:
+        assert root.start <= s.start <= s.end <= root.end, s
+        layer, dot, _ = s.name.partition(".")
+        if not dot:
+            assert s.parent is root, s
+        elif layer == "entry":
+            assert s.parent is root, s
+        else:
+            assert s.parent.name == layer and s.parent.call == root.id, s
+    workers = {s.thread for s in kept if s.name in ("align.vote",
+                                                     "align.jobs")}
+    assert workers and root.thread not in workers
+    assert all(s.thread == root.thread for s in kept
+               if not s.name.startswith(("align.vote", "align.jobs")))
+
+
+def test_main_thread_steps_cover_the_call(traced_call):
+    root = traced_call.root
+    steps = [(s.start, s.end) for s in traced_call.spans
+             if "." in s.name and s.thread == root.thread]
+    share = union_s(steps) / root.seconds
+    print(f"main-thread steps cover {100 * share:.1f} % of the call")
+    assert share >= 0.95
+
+
+def test_counters_equal_what_the_call_did(world, traced_call):
+    c = traced_call.root.attrs
+    assert c["pairs_parsed"] == len(world.reads)
+    recruited = traced_call.recruited
+    assert c["pairs_recruited"] == len({n for name in LOCI
+                                        for n in recruited[name][1]})
+    assert c["pairs_recruited"] == sum(len(recruited[name][1])
+                                       for name in LOCI)
+    n_haps = [len(world.loci[i].haplotypes) for i in range(len(LOCI))]
+    assert c["genotypes_stage0"] == sum(h * (h + 1) // 2 for h in n_haps)
+    assert c["k1_jobs"] == sum(traced_call.k1_rows) > 0
+    stages = [s for s in traced_call.spans if s.name.startswith("solve.st")]
+    for s in stages:
+        assert c[f"genotypes_{s.name[6:]}"] == s.attrs["genotypes"]
+    # One annealer call a chunk; attempts: 1 greedy, 4 annealing (LIGHT).
+    assert len(traced_call.chains) == sum(s.attrs["chunks"] for s in stages)
+    attempts = {"solve.stage1": 1, "solve.stage2": 4}
+    assert c["k2_chains"] == sum(traced_call.chains) == sum(
+        s.attrs["genotypes"] * attempts[s.name] for s in stages)
+    # The plain versions are no kernel launches.
+    assert c["k1_launches"] == c["k2_launches"] == c["k3_launches"] == 0
 
 
 # --- recruitment entries against the host oracle ----------------------------
