@@ -21,6 +21,7 @@ import numpy as np
 
 from ..bg import BgDistr
 from ..model import Params
+from ..model.windows import NeighbProfile
 from ..pipeline import LocusData, genotype_locus
 from ..seq import fastx
 from ..seq.contigs import ContigSet
@@ -1005,6 +1006,12 @@ def _run(args):
             if not path.exists():
                 raise ValueError(f"{args.reg_weights}: {path} does not exist")
             weight_files[cols[0]] = path
+    # Each locus's neighbourhood profile, built on first use and read by
+    # both post-alignment and the solver's inputs: once a call.
+    profiles = {name: NeighbProfile(loci[name].contig_set,
+                                    loci[name].kmer_counts,
+                                    bg.depth.neighb_size, params)
+                for name in todo}
     # Multi-locus device batching: align every locus's candidate jobs in
     # one global device stream (model/locs.py:build_all_alignments_panel);
     # per-locus results are identical to the unbatched path.  A failure
@@ -1030,7 +1037,8 @@ def _run(args):
         with spans.span("align"):
             built = build_all_alignments_panel(
                 panel, bg, edit_cache, params, device=device,
-                mesh=resolve_mesh("auto", device))
+                mesh=resolve_mesh("auto", device),
+                profiles=[profiles[n] for n in todo])
         panel_alns = dict(zip(todo, built))
         logger.info("Aligned %d loci in one device stream (%d reads)",
                     len(todo), sum(s["total"] for _, s in built))
@@ -1064,7 +1072,7 @@ def _run(args):
             entries.append(dict(
                 locus=loci[name], read_pairs=pairs, names=names, tag=name,
                 prebuilt=panel_alns[name], priors=locus_priors,
-                explicit_weights=explicit,
+                explicit_weights=explicit, profile=profiles[name],
                 sam_dir=(ldir / paths.ALNS_OUT_DIR)
                 if (args.out_sams or args.out_bams) else None,
                 sol_path=(ldir / paths.SOL_CSV) if args.debug else None,

@@ -35,6 +35,7 @@ from ..seq.counts import KmerCounts
 from ..seq.kmers import canonical_kmers, minimizers32
 from ..utils import spans
 from . import Params
+from .windows import NeighbProfile
 
 MAX_UNUSED_ALNS = 2   # locs.rs:730
 MAX_USED_ALNS = 10    # locs.rs:733
@@ -573,14 +574,6 @@ def _align_candidates(mates, jobs, contig_set, score_vec, band,
 # bg-estimation path).  Semantics: locs.rs:736-901.
 # ---------------------------------------------------------------------------
 
-def _neighb_complexity_arrays(contig_set, k: int, neighb: int):
-    """Per-haplotype moving-window linguistic complexity (the reference's
-    ContigInfo mov_info, windows.rs:404-407) for the low-complexity
-    edit-threshold relaxation."""
-    from ..seq.compl import linguistic_complexity
-    return [linguistic_complexity(s, k, neighb) for s in contig_set.seqs]
-
-
 def _neighb_complexity_at(compl_arr, middle: int, neighb: int) -> float:
     """complexity of the neighbourhood around `middle`
     (windows.rs:449-452)."""
@@ -778,7 +771,8 @@ def build_all_alignments(read_pairs, names, contig_set: ContigSet,
                          kmer_counts: KmerCounts, bg: BgDistr,
                          edit_cache: EditDistCache, params: Params,
                          minimizer_k: int = 15, minimizer_w: int = 10,
-                         explicit_weights=None, device=None, mesh=None):
+                         explicit_weights=None, device=None, mesh=None,
+                         profile: NeighbProfile | None = None):
     """The full locs pipeline, fully vectorized: candidates → device
     alignment → dedup → edit/bounds filters → weights → pairing →
     per-(read,hap) top-K.  `read_pairs`: list of (codes1, codes2|None).
@@ -787,13 +781,16 @@ def build_all_alignments(read_pairs, names, contig_set: ContigSet,
     ln-probs are then recomputed per-op with region weights
     (windows.rs:508-575 / err_prof.rs:225-266; the CIGARs come from the
     host traceback kernel replayed at the stored DP windows).
+    profile: the locus's NeighbProfile of this call, shared with the
+    solver's inputs (None: built here on demand).
 
     Semantics are bit-identical to `build_all_alignments_obj` (the readable
     per-read oracle below; guarded by tests/test_locs_parity.py)."""
     gen = _build_all_alignments_gen(read_pairs, names, contig_set,
                                     kmer_counts, bg, edit_cache, params,
                                     minimizer_k, minimizer_w,
-                                    explicit_weights=explicit_weights)
+                                    explicit_weights=explicit_weights,
+                                    profile=profile)
     req = next(gen)
     res = None
     if req is not None:
@@ -807,7 +804,7 @@ def build_all_alignments_panel(panel, bg: BgDistr, edit_cache: EditDistCache,
                                params: Params, minimizer_k: int = 15,
                                minimizer_w: int = 10,
                                group_size: int | None = None, device=None,
-                               mesh=None):
+                               mesh=None, profiles: list | None = None):
     """Multi-locus device batching: candidate alignment jobs run as a
     global device stream (shared [*, L] bucket), amortizing dispatch
     latency across the panel.  Results are identical to per-locus
@@ -825,6 +822,9 @@ def build_all_alignments_panel(panel, bg: BgDistr, edit_cache: EditDistCache,
     region-weighted alignment probs, windows.rs:508-575).
     mesh: optional parallel/mesh.py grid; every device batch is then split
     over its shards (`device` unused).
+    profiles: optional list of the call's NeighbProfile of each locus, in
+    panel order, shared with the solver's inputs (None: each built here on
+    demand).
     Returns list of (AllAlignments, stats) in panel order.
     """
     from concurrent.futures import ThreadPoolExecutor
@@ -851,7 +851,8 @@ def build_all_alignments_panel(panel, bg: BgDistr, edit_cache: EditDistCache,
             g = _build_all_alignments_gen(
                 read_pairs, names, contig_set, kmer_counts, bg, edit_cache,
                 params, minimizer_k, minimizer_w, panel_L=L,
-                explicit_weights=ew, span_parent=layer)
+                explicit_weights=ew, span_parent=layer,
+                profile=profiles[i] if profiles is not None else None)
             reqs.append(next(g))
             gens.append(g)
         return idxs, gens, reqs
@@ -946,13 +947,16 @@ def _build_all_alignments_gen(read_pairs, names, contig_set: ContigSet,
                               edit_cache: EditDistCache, params: Params,
                               minimizer_k: int = 15, minimizer_w: int = 10,
                               panel_L: int | None = None,
-                              explicit_weights=None, span_parent=None):
+                              explicit_weights=None, span_parent=None,
+                              profile: NeighbProfile | None = None):
     """Coroutine body of `build_all_alignments`: yields ONE device-align
     request (reads, lens, wins, score_vec, band) — or None when no
     candidates — then receives the kernel outputs via .send() and yields
     the final (AllAlignments, stats).  Its `align.vote` and `align.jobs`
     spans name `span_parent` as their parent (the `align` span of a worker
-    thread's caller), or else the innermost span open on their thread."""
+    thread's caller), or else the innermost span open on their thread.
+    `profile` (model/windows.py:NeighbProfile) gives the short-read
+    relaxation its complexity; None builds one here."""
     with spans.span("align.vote", parent=span_parent):
         is_paired = bg.insert_distr.is_paired_end
         tweak = params.tweak if params.tweak is not None else 0
@@ -1039,8 +1043,9 @@ def _build_all_alignments_gen(read_pairs, names, contig_set: ContigSet,
     # poor_compl_edit * len.
     if bg.seq_info.technology.are_short_reads and len(tbl):
         neighb = bg.depth.neighb_size
-        compl_arrs = _neighb_complexity_arrays(contig_set,
-                                               params.complexity_k, neighb)
+        if profile is None:
+            profile = NeighbProfile(contig_set, kmer_counts, neighb, params)
+        compl_arrs = profile.compl
         order2 = np.lexsort((-tbl.prob, tbl.mate))
         pm_sorted = tbl.mate[order2]
         first2 = np.ones(order2.size, bool)
@@ -1275,8 +1280,7 @@ def build_all_alignments_obj(read_pairs, names, contig_set: ContigSet,
 
     short_reads = bg.seq_info.technology.are_short_reads
     neighb = bg.depth.neighb_size
-    compl_arrs = (_neighb_complexity_arrays(contig_set, params.complexity_k,
-                                            neighb)
+    compl_arrs = (NeighbProfile(contig_set, kmer_counts, neighb, params).compl
                   if short_reads else None)
 
     for r, (c1, c2) in enumerate(read_pairs):

@@ -20,9 +20,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..seq.compl import linguistic_complexity
+from ..seq.compl import complexity_scale, distinct_kmer_counts
 from ..seq.contigs import ContigSet
 from ..seq.counts import KmerCounts
+from ..utils import spans
 from . import Params
 
 UNMAPPED_WINDOW = 0
@@ -49,58 +50,6 @@ class ContigInfo:
     left_padding: int
     gc_at: np.ndarray          # uint8 [contig_len], indexed by window start
     weight_at: np.ndarray      # f32   [contig_len]
-
-    @classmethod
-    def new(cls, seq: np.ndarray, kmer_counts: np.ndarray, kmer_k: int,
-            window_size: int, neighb_size: int, params: Params,
-            explicit: "ExplicitWeights | None" = None,
-            contig_name: str | None = None) -> "ContigInfo":
-        contig_len = seq.size
-        assert contig_len >= window_size + 2 * params.boundary_size, \
-            f"Contig too short ({contig_len})"
-        n_windows = (contig_len - 2 * params.boundary_size) // window_size
-        sum_len = n_windows * window_size
-        reg_start = (contig_len - sum_len) // 2
-        left_padding = (neighb_size - window_size) // 2
-
-        n_pos = contig_len - neighb_size + 1
-        # GC% over every neighbourhood (windows.rs:387-391).
-        is_gc = ((seq == 1) | (seq == 2)).astype(np.int64)
-        cum = np.concatenate([[0], np.cumsum(is_gc)])
-        gc = np.round(100.0 * (cum[neighb_size:] - cum[:-neighb_size]) / neighb_size)
-        gc = gc.astype(np.uint8)
-
-        # Unique k-mer fraction (count == 0) per neighbourhood (:393-403).
-        span = neighb_size + 1 - kmer_k
-        isu = (kmer_counts == 0).astype(np.int64)
-        cumu = np.concatenate([[0], np.cumsum(isu)])
-        nk = min(span, cumu.size - 1)
-        uniq = (cumu[nk:nk + n_pos] - cumu[:n_pos]) / span
-
-        # Linguistic complexity (:404-407).
-        compl = linguistic_complexity(seq, params.complexity_k, neighb_size)
-        compl = compl[:n_pos] if compl.size >= n_pos else np.pad(
-            compl, (0, n_pos - compl.size), constant_values=np.nan)
-
-        w = (weight_calc(uniq, params.kmers_weight_breakpoint,
-                         params.kmers_weight_power)
-             * weight_calc(np.nan_to_num(compl, nan=1.0),
-                           params.compl_weight_breakpoint,
-                           params.compl_weight_power))
-        if explicit is not None and contig_name is not None:
-            # Mean explicit weight over each neighbourhood multiplies in
-            # (windows.rs:439-445 get_explicit path).
-            per_bp = explicit.per_bp(contig_name, contig_len)
-            cume = np.concatenate([[0.0], np.cumsum(per_bp)])
-            mean_e = (cume[neighb_size:] - cume[:-neighb_size]) / neighb_size
-            w = w * mean_e[:n_pos].astype(np.float64)
-
-        # Expand to per-window-start indexing: neighb_info(start) reads
-        # mov_info[max(start - left_padding, 0)] (windows.rs:439-445).
-        idx = np.clip(np.arange(contig_len) - left_padding, 0, n_pos - 1)
-        return cls(contig_len, int(n_windows), int(reg_start), window_size,
-                   neighb_size, left_padding,
-                   gc_at=gc[idx], weight_at=w[idx].astype(np.float32))
 
     def default_window_starts(self) -> np.ndarray:
         return self.reg_start + self.window_size * np.arange(self.n_windows)
@@ -153,15 +102,154 @@ class ExplicitWeights:
         return w
 
 
+class NeighbProfile:
+    """A locus's neighbourhood profile (windows.rs:387-407): for every
+    haplotype and every start of a neighbourhood of `neighb_size` bases, its
+    linguistic complexity, GC bin, unique-k-mer fraction and the product of
+    the k-mer and complexity sigmoid weights.
+
+    Built on first use, in one pass over all the locus's haplotypes end to
+    end (counted as `compl_haps` in the open call).  A `genotype` call makes
+    one a locus and hands it to post-alignment (`compl`, the short-read
+    edit-threshold relaxation) and to the solver's inputs (`contig_infos`),
+    so that the pass runs once a call; nothing outlives the call.  Arrays
+    are flat over the haplotypes: haplotype h holds the neighbourhood starts
+    pos_offsets[h]:pos_offsets[h + 1], max(len - neighb_size + 1, 0) of them.
+    """
+
+    def __init__(self, contig_set: ContigSet, kmer_counts: KmerCounts,
+                 neighb_size: int, params: Params):
+        self.contig_set = contig_set
+        self.kmer_counts = kmer_counts
+        self.neighb_size = neighb_size
+        self.params = params
+        self._built = False
+
+    def _build(self) -> None:
+        if self._built:
+            return
+        seqs, neighb, params = (self.contig_set.seqs, self.neighb_size,
+                                self.params)
+        spans.count("compl_haps", len(seqs))
+        self.lens = n = np.fromiter((s.size for s in seqs), np.int64,
+                                    len(seqs))
+        n_pos = np.maximum(n - neighb + 1, 0)
+        self.pos_offsets = np.zeros(n.size + 1, np.int64)
+        np.cumsum(n_pos, out=self.pos_offsets[1:])
+        # Each weight and GC bin is a function of an integer count in a
+        # neighbourhood: computed once for every possible count, then
+        # looked up (the same arithmetic on the same values).
+
+        # Linguistic complexity (:404-407).
+        k = params.complexity_k
+        counts, self.compl_offsets = distinct_kmer_counts(seqs, k, neighb)
+        if neighb >= k:
+            scale = complexity_scale(k, neighb)
+            self.compl_values = counts * scale
+            compl_w = weight_calc(np.arange(neighb - k + 2) * scale,
+                                  params.compl_weight_breakpoint,
+                                  params.compl_weight_power)[counts]
+        else:       # no window: a missing complexity reads as 1
+            self.compl_values = np.empty(0, np.float64)
+            compl_w = np.repeat(weight_calc(np.ones(1),
+                                            params.compl_weight_breakpoint,
+                                            params.compl_weight_power),
+                                self.pos_offsets[-1])
+
+        # GC% over every neighbourhood (windows.rs:387-391).
+        base = np.zeros(n.size + 1, np.int64)
+        np.cumsum(n, out=base[1:])
+        at = self._pos_index(base[:-1], n_pos)
+        bases = np.concatenate(seqs)
+        cum = np.zeros(bases.size + 1, np.int64)
+        np.cumsum((bases == 1) | (bases == 2), out=cum[1:])
+        gc_bin = np.round(100.0 * np.arange(neighb + 1) / neighb)
+        self.gc = gc_bin.astype(np.uint8)[cum[at + neighb] - cum[at]]
+
+        # Unique k-mer fraction (count == 0) per neighbourhood (:393-403).
+        kmer_counts = self.kmer_counts.counts
+        span = neighb + 1 - self.kmer_counts.k
+        n_cnt = np.fromiter((c.size for c in kmer_counts), np.int64,
+                            len(kmer_counts))
+        nk = np.minimum(span, n_cnt)
+        if np.any((nk + n_pos > n_cnt + 1) & (n_pos > 0)):
+            raise ValueError("k-mer counts shorter than their haplotype")
+        cnt_start = np.zeros(n.size + 1, np.int64)
+        np.cumsum(n_cnt, out=cnt_start[1:])
+        at = self._pos_index(cnt_start[:-1], n_pos)
+        cumu = np.zeros(cnt_start[-1] + 1, np.int64)
+        np.cumsum(np.concatenate(kmer_counts) == 0, out=cumu[1:])
+        uniq_w = weight_calc(np.arange(span + 1) / span,
+                             params.kmers_weight_breakpoint,
+                             params.kmers_weight_power)
+        self.weight = uniq_w[cumu[at + np.repeat(nk, n_pos)] - cumu[at]] \
+            * compl_w
+        self._built = True
+
+    def _pos_index(self, first: np.ndarray, n_pos: np.ndarray) -> np.ndarray:
+        """For every neighbourhood start of every haplotype, `first` of its
+        haplotype plus the start."""
+        return np.arange(self.pos_offsets[-1], dtype=np.int64) + np.repeat(
+            first - self.pos_offsets[:-1], n_pos)
+
+    @property
+    def compl(self) -> list[np.ndarray]:
+        """Each haplotype's moving-window complexity, empty where it is
+        shorter than a neighbourhood."""
+        self._build()
+        o = self.compl_offsets
+        return [self.compl_values[o[h]:o[h + 1]] for h in range(o.size - 1)]
+
+    def contig_infos(self, window_size: int,
+                     explicit: "ExplicitWeights | None" = None
+                     ) -> list[ContigInfo]:
+        """Each haplotype's `ContigInfo` (windows.rs:343-424), the mean
+        explicit weight of each neighbourhood multiplied in when `explicit`
+        is given (windows.rs:439-445)."""
+        self._build()
+        neighb, boundary = self.neighb_size, self.params.boundary_size
+        n, po = self.lens, self.pos_offsets
+        n_pos = np.diff(po)
+        for contig_len, m in zip(n, n_pos):
+            assert contig_len >= window_size + 2 * boundary, \
+                f"Contig too short ({contig_len})"
+            assert m >= 1, \
+                f"Contig shorter than its neighbourhood ({contig_len})"
+        w = self.weight
+        if explicit is not None:
+            mean_e = []
+            for name, contig_len, m in zip(self.contig_set.contigs.names, n,
+                                           n_pos):
+                cume = np.concatenate([[0.0], np.cumsum(
+                    explicit.per_bp(name, int(contig_len)))])
+                mean_e.append((cume[neighb:] - cume[:-neighb])[:m] / neighb)
+            w = w * np.concatenate(mean_e)
+        # Per-window-start indexing: neighb_info(start) reads
+        # mov_info[max(start - left_padding, 0)] (windows.rs:439-445).
+        left_padding = (neighb - window_size) // 2
+        base = np.zeros(n.size + 1, np.int64)
+        np.cumsum(n, out=base[1:])
+        first = np.repeat(base[:-1], n)
+        at = np.arange(base[-1], dtype=np.int64) - first - left_padding
+        np.clip(at, 0, np.repeat(n_pos - 1, n), out=at)
+        at += np.repeat(po[:-1], n)
+        gc_at, weight_at = self.gc[at], w[at].astype(np.float32)
+        infos = []
+        for h, contig_len in enumerate(n.tolist()):
+            n_windows = (contig_len - 2 * boundary) // window_size
+            reg_start = (contig_len - n_windows * window_size) // 2
+            infos.append(ContigInfo(
+                contig_len, n_windows, reg_start, window_size, neighb,
+                left_padding, gc_at=gc_at[base[h]:base[h + 1]],
+                weight_at=weight_at[base[h]:base[h + 1]]))
+        return infos
+
+
 def build_contig_infos(contig_set: ContigSet, kmer_counts: KmerCounts,
                        window_size: int, neighb_size: int, params: Params,
                        explicit: ExplicitWeights | None = None) -> list[ContigInfo]:
-    names = contig_set.contigs.names
-    return [ContigInfo.new(seq, counts, kmer_counts.k, window_size,
-                           neighb_size, params, explicit=explicit,
-                           contig_name=names[i])
-            for i, (seq, counts) in enumerate(zip(contig_set.seqs,
-                                                  kmer_counts.counts))]
+    return NeighbProfile(contig_set, kmer_counts, neighb_size,
+                         params).contig_infos(window_size, explicit)
 
 
 @dataclass

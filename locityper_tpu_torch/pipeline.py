@@ -16,7 +16,7 @@ from .bg.err_prof import EditDistCache, EditThresh
 from .model import Params
 from .model.assgn import LocusTensors
 from .model.locs import build_all_alignments
-from .model.windows import ContigInfoPack, build_contig_infos
+from .model.windows import ContigInfoPack, NeighbProfile
 from .seq.contigs import ContigSet, Genotype
 from .seq.counts import KmerCounts
 from .seq.recruit import RecruitParams, TargetIndex, recruit_any
@@ -96,6 +96,8 @@ def genotype_locus(locus: LocusData, read_pairs, names, bg: BgDistr,
     if params.band is None:
         params.band = 48 if tech.are_short_reads else 160
     edit_cache = EditDistCache(bg.err_prof, EditThresh.default_for(tech))
+    profile = NeighbProfile(locus.contig_set, locus.kmer_counts, neighb_size,
+                            params)
     if prebuilt_alns is not None:
         all_alns, stats = prebuilt_alns
     else:
@@ -103,7 +105,7 @@ def genotype_locus(locus: LocusData, read_pairs, names, bg: BgDistr,
             all_alns, stats = build_all_alignments(
                 read_pairs, names, locus.contig_set, locus.kmer_counts, bg,
                 edit_cache, params, explicit_weights=explicit_weights,
-                device=device, mesh=mesh)
+                device=device, mesh=mesh, profile=profile)
     logger.info("    [%s] %d/%d reads usable (%d poorly mapped, %d out of "
                 "bounds, %d low weight)", tag, all_alns.n_used,
                 stats["total"], stats["poorly_mapped"], stats["out_of_bounds"],
@@ -115,7 +117,8 @@ def genotype_locus(locus: LocusData, read_pairs, names, bg: BgDistr,
 
     with spans.span("solve"):
         prep = _prepare_solve_inputs(locus, all_alns, bg, params, ploidy,
-                                     priors, explicit_weights, debug, out_dir)
+                                     priors, explicit_weights, debug, out_dir,
+                                     profile=profile)
         scheme = scheme or Scheme.default()
         sol_writer = None
         gt_names = None
@@ -141,14 +144,16 @@ def genotype_locus(locus: LocusData, read_pairs, names, bg: BgDistr,
 
 def _prepare_solve_inputs(locus: LocusData, all_alns, bg: BgDistr,
                           params: Params, ploidy: int, priors,
-                          explicit_weights, debug: int, out_dir) -> dict:
+                          explicit_weights, debug: int, out_dir,
+                          profile: NeighbProfile | None = None) -> dict:
     """Shared pre-solve assembly: window infos, packed tensors, genotype
-    enumeration, prior vector (genotype.rs analyze_locus :1110-1150)."""
-    window_size = bg.depth.window_size
-    neighb_size = bg.depth.neighb_size
-    infos = build_contig_infos(locus.contig_set, locus.kmer_counts,
-                               window_size, neighb_size, params,
-                               explicit=explicit_weights)
+    enumeration, prior vector (genotype.rs analyze_locus :1110-1150).
+    `profile`: the locus's NeighbProfile of this call, when post-alignment
+    has one (None: built here)."""
+    if profile is None:
+        profile = NeighbProfile(locus.contig_set, locus.kmer_counts,
+                                bg.depth.neighb_size, params)
+    infos = profile.contig_infos(bg.depth.window_size, explicit_weights)
     if debug >= 1 and out_dir is not None:
         _write_windows_bed(out_dir, locus.contig_set, infos)
     if debug >= 2 and out_dir is not None:
@@ -249,7 +254,8 @@ def genotype_panel(entries: list, bg: BgDistr, params: Params | None = None,
     entries: list of dicts with keys
         locus (LocusData), read_pairs, names, tag, prebuilt (AllAlignments,
         stats), and optionally priors, explicit_weights, sam_dir, sol_path,
-        debug, out_dir.
+        debug, out_dir, profile (the locus's NeighbProfile of the call,
+        shared with the alignment that made `prebuilt`).
     device: None = CUDA (raises without one); "cpu" = plain PyTorch.
     mesh: as in `genotype_locus`.
     Returns list of (Genotyping, stats) in entry order.  Calls match
@@ -285,7 +291,8 @@ def genotype_panel(entries: list, bg: BgDistr, params: Params | None = None,
                 continue
             prep = _prepare_solve_inputs(
                 locus, all_alns, bg, params, ploidy, e.get("priors"),
-                e.get("explicit_weights"), e.get("debug", 0), e.get("out_dir"))
+                e.get("explicit_weights"), e.get("debug", 0), e.get("out_dir"),
+                profile=e.get("profile"))
             sol_writer = None
             if e.get("sol_path") is not None:
                 from .utils.io import smart_create
