@@ -610,8 +610,9 @@ def _recruit_fast_pass(order, loci, dev, path1, path2, subsample, seed,
     # Parse in a background thread (zlib + the native parser release the
     # GIL): batch N+1 decompresses/parses while this thread scatters N-1
     # and feeds the device with N.
-    batches = prefetch_iter(fast_paired_batches(path1, path2, batch=batch,
-                                                max_len=max_len), depth=2)
+    batches = prefetch_iter(fast_paired_batches(
+        path1, path2, batch=batch, max_len=max_len,
+        span_parent=spans.current()), depth=2)
     while True:
         with spans.span("recruit.parse"):
             item = next(batches, None)

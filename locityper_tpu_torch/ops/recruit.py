@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..utils import spans
 from ..seq.recruit import (DIR_BW, DIR_FW, RARE_BIT, RARE_WORTH,
                            SUBSUM_BONUS, SUBSUM_PENALTY, TargetIndex)
 
@@ -261,7 +262,11 @@ def _minimizer_front_cuda(reads, k: int, w: int, S):
 def minimizer_front(reads, k: int, w: int, S: int | None = None):
     """Kernel wrapper: a CUDA tensor goes to the hand-written kernel (or
     raises), a CPU tensor to the plain version — decided by where `reads`
-    lies and by nothing else.  See `minimizer_front_reference`."""
+    lies and by nothing else.  See `minimizer_front_reference`.  The rows
+    of every compacting call (K3) are added to the open call's counter
+    `k3_rows`, on either device."""
+    if S is not None:
+        spans.count("k3_rows", reads.shape[0])
     if reads.is_cuda:
         _check_front_args(reads, k, w, S)
         return _minimizer_front_cuda(reads, k, w, S)

@@ -207,12 +207,18 @@ def probe_fastq_max_len(paths, n_bytes: int = 1 << 22) -> int:
 
 
 def fast_paired_batches(path1, path2, batch: int = 4096,
-                        max_len: int | None = None):
+                        max_len: int | None = None, span_parent=None):
     """Streams paired FASTQ files as dense batches using the native C++
     parser (native/): yields (names, m1 [B, max_len] int8,
     lens1, m2, lens2, count).  Decompression stays in Python (zlib C under
     the hood); record parsing and encoding run natively.  Falls back to the
     Python reader when the native library is unavailable.
+
+    With the native parser, each batch's inflate, parse and packing is one
+    `recruit.read` span (utils/spans.py, attribute `pairs`) naming
+    `span_parent` as its parent, since it runs on whichever thread draws
+    from the generator; every chunk's decompressed bytes are added to the
+    open call's counter `fastq_bytes`.
 
     max_len=None sizes the batch width from the files' leading records
     (64-bucketed, floor 192).  If a longer read appears mid-stream, raises
@@ -236,6 +242,7 @@ def fast_paired_batches(path1, path2, batch: int = 4096,
             yield _pack_pairs(names, r1s, r2s, max_len)
         return
 
+    from ..utils import spans
     from ..utils.io import smart_open_bytes
 
     class _ChunkQueue:
@@ -256,6 +263,7 @@ def fast_paired_batches(path1, path2, batch: int = 4096,
             with smart_open_bytes(path) as f:
                 while True:
                     data = f.read(_CHUNK_BYTES)
+                    spans.count("fastq_bytes", len(data))
                     if not data and not buf.strip(b"\n"):
                         return
                     buf += data
@@ -306,27 +314,33 @@ def fast_paired_batches(path1, path2, batch: int = 4096,
 
     q1, q2 = _ChunkQueue(path1), _ChunkQueue(path2)
     while True:
-        c1, l1, n1 = q1.take(batch)
-        c2, l2, n2 = q2.take(batch)
-        n = min(len(n1), len(n2))
+        # The span closes before the yield: a consumer's wait is not the
+        # reader's work.
+        with spans.span("recruit.read", parent=span_parent) as read:
+            c1, l1, n1 = q1.take(batch)
+            c2, l2, n2 = q2.take(batch)
+            n = min(len(n1), len(n2))
+            read.attrs["pairs"] = n
+            if n == batch:
+                item = (n1, c1, l1.astype(np.int32), c2,
+                        l2.astype(np.int32), batch)
+            elif n:
+                # Pad the final partial batch to the full batch shape so
+                # device kernels see one stable shape.
+                m1 = np.full((batch, max_len), 4, np.int8)
+                m2 = np.full((batch, max_len), 4, np.int8)
+                m1[:n] = c1[:n]
+                m2[:n] = c2[:n]
+                fl1 = np.zeros(batch, np.int32)
+                fl2 = np.zeros(batch, np.int32)
+                fl1[:n] = l1[:n]
+                fl2[:n] = l2[:n]
+                item = (n1[:n], m1, fl1, m2, fl2, n)
         if n == 0:
             return
-        if n == batch:
-            yield (n1, c1, l1.astype(np.int32), c2, l2.astype(np.int32),
-                   batch)
-            continue
-        # Pad the final partial batch to the full batch shape so device
-        # kernels see one stable shape.
-        m1 = np.full((batch, max_len), 4, np.int8)
-        m2 = np.full((batch, max_len), 4, np.int8)
-        m1[:n] = c1[:n]
-        m2[:n] = c2[:n]
-        fl1 = np.zeros(batch, np.int32)
-        fl2 = np.zeros(batch, np.int32)
-        fl1[:n] = l1[:n]
-        fl2[:n] = l2[:n]
-        yield (n1[:n], m1, fl1, m2, fl2, n)
-        return
+        yield item
+        if n < batch:
+            return
 
 
 def _pack_pairs(names, r1s, r2s, max_len):

@@ -31,7 +31,8 @@ import itertools
 import threading
 import time
 
-#: Closed spans kept: a `genotype` call of three loci opens 41.
+#: Closed spans kept: a `genotype` call of three loci opens 42, and one more
+#: for each further batch of pairs its FASTQ reader parses.
 MAXLEN = 65536
 
 

@@ -491,11 +491,11 @@ def test_the_call_leaves_a_well_formed_tree(traced_call):
     assert root.parent is None and root.call == root.id
     names = {s.name for s in kept}
     assert {"entry.load", "entry.write", "recruit", "recruit.index",
-            "recruit.parse", "recruit.dispatch", "recruit.decide",
-            "recruit.scatter", "align", "align.vote", "align.jobs",
-            "align.wait", "align.dispatch", "align.post", "solve",
-            "solve.prep", "solve.filter", "solve.stage1", "solve.stage2",
-            "solve.final"} <= names
+            "recruit.parse", "recruit.read", "recruit.dispatch",
+            "recruit.decide", "recruit.scatter", "align", "align.vote",
+            "align.jobs", "align.wait", "align.dispatch", "align.post",
+            "solve", "solve.prep", "solve.filter", "solve.stage1",
+            "solve.stage2", "solve.final"} <= names
     for s in kept:
         assert root.start <= s.start <= s.end <= root.end, s
         layer, dot, _ = s.name.partition(".")
@@ -505,11 +505,11 @@ def test_the_call_leaves_a_well_formed_tree(traced_call):
             assert s.parent is root, s
         else:
             assert s.parent.name == layer and s.parent.call == root.id, s
-    workers = {s.thread for s in kept if s.name in ("align.vote",
-                                                     "align.jobs")}
+    off_main = ("align.vote", "align.jobs", "recruit.read")
+    workers = {s.thread for s in kept if s.name in off_main}
     assert workers and root.thread not in workers
     assert all(s.thread == root.thread for s in kept
-               if not s.name.startswith(("align.vote", "align.jobs")))
+               if s.name not in off_main)
 
 
 def test_main_thread_steps_cover_the_call(traced_call):
@@ -540,8 +540,10 @@ def test_counters_equal_what_the_call_did(world, traced_call):
     attempts = {"solve.stage1": 1, "solve.stage2": 4}
     assert c["k2_chains"] == sum(traced_call.chains) == sum(
         s.attrs["genotypes"] * attempts[s.name] for s in stages)
-    # The plain versions are no kernel launches.
+    # The plain versions are no kernel launches; both mates of every pair
+    # pass the minimizer front end.
     assert c["k1_launches"] == c["k2_launches"] == c["k3_launches"] == 0
+    assert c["k3_rows"] == 2 * c["pairs_parsed"]
 
 
 # --- recruitment entries against the host oracle ----------------------------
