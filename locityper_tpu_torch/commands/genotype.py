@@ -606,30 +606,31 @@ def _recruit_fast_pass(order, loci, dev, path1, path2, subsample, seed,
             return
         scatter(entry)
 
-    from ..utils.io import prefetch_iter
-    # Parse in a background thread (zlib + the native parser release the
-    # GIL): batch N+1 decompresses/parses while this thread scatters N-1
-    # and feeds the device with N.
-    batches = prefetch_iter(fast_paired_batches(
-        path1, path2, batch=batch, max_len=max_len,
-        span_parent=spans.current()), depth=2)
-    while True:
-        with spans.span("recruit.parse"):
-            item = next(batches, None)
-        if item is None:
-            break
-        names, m1, l1, m2, l2, count = item
-        with spans.span("recruit.dispatch"):
-            keep = (rng.random(count) < subsample) if subsample is not None \
-                else None
-            if first_scatter[0] is None and not pending:
-                first_scatter[0] = _time.perf_counter()
-            pending.append((names, m1, l1, m2, l2, count, keep,
-                            dispatch(m1[:count], m2[:count])))
-        # Pipeline depth 3: the upload of batch N and the download of
-        # batch N-2's decisions overlap the device pass of batch N-1.
-        while len(pending) > 3:
-            scatter_first_aware(pending.pop(0))
+    from ..utils.io import Prefetch
+    # The mates are inflated and parsed on a thread each, and paired into
+    # batches on a third (zlib and the native parser release the GIL):
+    # batch N+1 is read while this thread scatters N-1 and feeds the
+    # device with N.  Leaving the block stops and joins all three.
+    with Prefetch(fast_paired_batches(
+            path1, path2, batch=batch, max_len=max_len,
+            span_parent=spans.current()), depth=2) as batches:
+        while True:
+            with spans.span("recruit.parse"):
+                item = next(batches, None)
+            if item is None:
+                break
+            names, m1, l1, m2, l2, count = item
+            with spans.span("recruit.dispatch"):
+                keep = (rng.random(count) < subsample) \
+                    if subsample is not None else None
+                if first_scatter[0] is None and not pending:
+                    first_scatter[0] = _time.perf_counter()
+                pending.append((names, m1, l1, m2, l2, count, keep,
+                                dispatch(m1[:count], m2[:count])))
+            # Pipeline depth 3: the upload of batch N and the download of
+            # batch N-2's decisions overlap the device pass of batch N-1.
+            while len(pending) > 3:
+                scatter_first_aware(pending.pop(0))
     while pending:
         scatter_first_aware(pending.pop(0))
     speed = progress.final()

@@ -315,26 +315,25 @@ def chain_align(codes1, codes2, anchors1, anchors2, k: int, max_gap: int,
     return ops[:n], lens[:n], int(score.value)
 
 
-def parse_fastq_buffer(buf: bytes, max_len: int, max_reads: int):
-    """Parses a decompressed FASTQ buffer into ([N, max_len] codes, lens,
-    names).  Returns (codes, lens, names, bytes_consumed, max_seen) where
-    max_seen is the longest TRUE sequence length in the parsed records —
-    max_seen > max_len means sequences were clipped and the caller must
+def parse_fastq_into(buf: np.ndarray, codes: np.ndarray, lens: np.ndarray,
+                     name_off: np.ndarray, name_len: np.ndarray):
+    """Parses the complete FASTQ records at the head of `buf` (uint8) into
+    the rows of `codes` ([R, max_len] int8, C-contiguous: N-padded codes,
+    clipped at max_len) and `lens` (int32), at most R records; record i's
+    name (up to the first space, tab or newline) is buf[name_off[i]:
+    name_off[i] + name_len[i]].  Returns (records, bytes_consumed,
+    max_seen), where max_seen is the longest TRUE sequence length parsed:
+    max_seen > max_len means a sequence was clipped and the caller must
     re-size (reference recruitment never clips, recruit.rs:852-932)."""
     lib = get_lib()
-    arr = np.frombuffer(buf, np.uint8)
-    n = arr.size
-    codes = np.empty((max_reads, max_len), np.int8)
-    lens = np.empty(max_reads, np.int32)
-    name_off = np.empty(max_reads, np.int64)
-    name_len = np.empty(max_reads, np.int32)
+    rows, max_len = codes.shape
+    if not (codes.flags.c_contiguous and lens.size >= rows
+            and name_off.size >= rows and name_len.size >= rows):
+        raise ValueError("parse_fastq_into: output arrays too small")
     consumed_c = ctypes.c_int64(0)
     max_seen_c = ctypes.c_int32(0)
-    cnt = lib.parse_fastq(arr, n, max_len, max_reads, codes.reshape(-1),
+    cnt = lib.parse_fastq(buf, buf.size, max_len, rows, codes.reshape(-1),
                           lens, name_off, name_len,
                           ctypes.byref(consumed_c),
                           ctypes.byref(max_seen_c))
-    names = [buf[name_off[i]:name_off[i] + name_len[i]].decode()
-             for i in range(cnt)]
-    return (codes[:cnt], lens[:cnt], names, int(consumed_c.value),
-            int(max_seen_c.value))
+    return int(cnt), int(consumed_c.value), int(max_seen_c.value)

@@ -6,11 +6,13 @@ shape the device kernels operate on.  Gzip handled transparently.
 """
 from __future__ import annotations
 
+import operator
 from dataclasses import dataclass
 
 import numpy as np
 
-from ..utils.io import smart_open
+from ..utils import spans
+from ..utils.io import Prefetch, smart_open, smart_open_bytes
 from . import dna
 
 #: Decompressed bytes fed to the native FASTQ parser per chunk.  Module
@@ -171,7 +173,6 @@ def is_fastq_files(paths) -> bool:
     byte is '@'.  Gates the native-parser fast paths: the C++ parser
     handles FASTQ only, and feeding it FASTA would silently yield zero
     records (kernels.cpp stops at a non-'@' record start)."""
-    from ..utils.io import smart_open_bytes
     for path in paths:
         try:
             with smart_open_bytes(path) as f:
@@ -192,7 +193,6 @@ def probe_fastq_max_len(paths, n_bytes: int = 1 << 22) -> int:
     """Longest sequence among the leading records of each file (one
     decompressed chunk per file).  Sizes the dense batch width so typical
     uniform-length libraries never trigger a mid-stream re-size."""
-    from ..utils.io import smart_open_bytes
     longest = 0
     for path in paths:
         with smart_open_bytes(path) as f:
@@ -206,19 +206,145 @@ def probe_fastq_max_len(paths, n_bytes: int = 1 << 22) -> int:
     return longest
 
 
+class NameColumn:
+    """The read names of a batch, kept as one flat byte string and offsets:
+    `names[i]` decodes row i's name to `str` (counted in the open call's
+    `names_decoded`), `names[a:b]` is a column of those rows, `len(names)`
+    the rows.  Recruitment decodes only the names of the pairs it keeps."""
+
+    __slots__ = ("_flat", "_ends")
+
+    def __init__(self, flat: bytes, ends: np.ndarray):
+        self._flat = flat       # the names, one after another
+        self._ends = ends       # [rows + 1] int64; row i: ends[i]:ends[i + 1]
+
+    def __len__(self) -> int:
+        return self._ends.size - 1
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            start, stop, step = i.indices(len(self))
+            if step != 1:
+                raise ValueError("NameColumn slices take no step")
+            return NameColumn(self._flat,
+                              self._ends[start:max(stop, start) + 1])
+        i = operator.index(i)
+        if i < 0:
+            i += len(self)
+        if not 0 <= i < len(self):
+            raise IndexError(i)
+        spans.count("names_decoded", 1)
+        return self._flat[self._ends[i]:self._ends[i + 1]].decode()
+
+
+class _Block:
+    """One mate's [batch, max_len] block of parsed records, filled by
+    successive parser calls (`rows` so far), with its names when kept."""
+
+    def __init__(self, batch: int, max_len: int, keep_names: bool):
+        self.codes = np.empty((batch, max_len), np.int8)
+        self.lens = np.empty(batch, np.int32)
+        self.rows = 0
+        self._pieces = [] if keep_names else None
+        self._ends = np.zeros(batch + 1, np.int64) if keep_names else None
+
+    def add_names(self, buf, name_off, name_len) -> None:
+        """Copies the names of the rows just parsed out of `buf`, in one
+        gather a parser call."""
+        if self._pieces is None or not name_len.size:
+            return
+        ends = np.cumsum(name_len, dtype=np.int64)
+        starts = np.repeat(name_off - (ends - name_len), name_len)
+        self._pieces.append(buf[starts + np.arange(ends[-1])])
+        r = self.rows
+        self._ends[r + 1:r + 1 + ends.size] = self._ends[r] + ends
+
+    @property
+    def names(self):
+        if self._pieces is None:
+            return None
+        flat = np.concatenate(self._pieces) if self._pieces \
+            else np.empty(0, np.uint8)
+        return NameColumn(flat.tobytes(), self._ends[:self.rows + 1])
+
+
+def _mate_blocks(path, mate: int, batch: int, max_len: int,
+                 keep_names: bool, span_parent):
+    """Inflates and parses one mate file into _Blocks of `batch` records
+    (the last one partial), one `recruit.mate` span a chunk.  The
+    decompressed bytes go to one reused buffer, from which the parser
+    fills the block's rows directly."""
+    from .. import native
+
+    name_off = np.empty(batch, np.int64)
+    name_len = np.empty(batch, np.int32)
+    buf = bytearray()
+    block = _Block(batch, max_len, keep_names)
+    with smart_open_bytes(path) as f:
+        while True:
+            full = []
+            with spans.span("recruit.mate", parent=span_parent,
+                            mate=mate) as sp:
+                data = f.read(_CHUNK_BYTES)
+                spans.count("fastq_bytes", len(data))
+                buf += data
+                arr = np.frombuffer(buf, np.uint8)
+                pos = records = 0
+                while True:
+                    r = block.rows
+                    cnt, used, max_seen = native.parse_fastq_into(
+                        arr[pos:], block.codes[r:], block.lens[r:],
+                        name_off, name_len)
+                    if max_seen > max_len:
+                        raise MaxLenExceeded(max_seen)
+                    block.add_names(arr[pos:], name_off[:cnt],
+                                    name_len[:cnt])
+                    block.rows += cnt
+                    pos += used
+                    records += cnt
+                    if block.rows < batch:
+                        break
+                    full.append(block)
+                    block = _Block(batch, max_len, keep_names)
+                del arr
+                del buf[:pos]
+                # Chunk-boundary hazard (found at 100-locus scale): when a
+                # record's trailing newline falls EXACTLY on the chunk
+                # boundary, the parser consumes the record (its qual is
+                # complete — qual length must equal seq length, so nothing
+                # can follow) and the orphan '\n' arrives at the head of
+                # the next chunk, where the parser refuses to parse
+                # anything and the stream would silently truncate.
+                if buf[:1] == b"\n":
+                    del buf[:len(buf) - len(buf.lstrip(b"\n"))]
+                sp.attrs["records"] = records
+            yield from full
+            if not data:
+                break
+    if block.rows:
+        yield block
+
+
 def fast_paired_batches(path1, path2, batch: int = 4096,
                         max_len: int | None = None, span_parent=None):
     """Streams paired FASTQ files as dense batches using the native C++
-    parser (native/): yields (names, m1 [B, max_len] int8,
-    lens1, m2, lens2, count).  Decompression stays in Python (zlib C under
-    the hood); record parsing and encoding run natively.  Falls back to the
-    Python reader when the native library is unavailable.
+    parser (native/): yields (names, m1 [B, max_len] int8, lens1, m2,
+    lens2, count).  Falls back to the Python reader when the native library
+    is unavailable.
 
-    With the native parser, each batch's inflate, parse and packing is one
-    `recruit.read` span (utils/spans.py, attribute `pairs`) naming
-    `span_parent` as its parent, since it runs on whichever thread draws
-    from the generator; every chunk's decompressed bytes are added to the
-    open call's counter `fastq_bytes`.
+    With the native parser, each mate file is inflated (Python's zlib) and
+    parsed on a thread of its own (`_mate_blocks` under a Prefetch,
+    threads `fastq-mate1` and `fastq-mate2`), straight into whole
+    [batch, max_len] blocks, with no Python work a record; `names` is a
+    NameColumn of mate 1's names, decoded only where a row is indexed, and
+    mate 2's names are never kept.  The generator's own thread pairs the
+    two mates' blocks: each batch is one `recruit.read` span (attribute
+    `pairs`, including the wait on the mate threads), each chunk of a mate
+    one `recruit.mate` span (`mate`, `records`) on that mate's thread, all
+    naming `span_parent` as their parent (utils/spans.py); every chunk's
+    decompressed bytes are added to the open call's counter `fastq_bytes`.
+    The stream ends with the shorter file; closing the generator stops and
+    joins both mate threads.
 
     max_len=None sizes the batch width from the files' leading records
     (64-bucketed, floor 192).  If a longer read appears mid-stream, raises
@@ -242,105 +368,34 @@ def fast_paired_batches(path1, path2, batch: int = 4096,
             yield _pack_pairs(names, r1s, r2s, max_len)
         return
 
-    from ..utils import spans
-    from ..utils.io import smart_open_bytes
-
-    class _ChunkQueue:
-        """Parsed-chunk FIFO: take(n) assembles [n, max_len] blocks by array
-        slicing — no per-read Python (the parser already returns dense
-        arrays)."""
-
-        def __init__(self, path):
-            # One parse thread per file: the outer recruit prefetch
-            # already hides parsing behind the consumer's work.
-            self._gen = self._chunks(path)
-            self._parts = []            # [(codes, lens, names, offset)]
-            self.eof = False
-
-        @staticmethod
-        def _chunks(path):
-            buf = b""
-            with smart_open_bytes(path) as f:
-                while True:
-                    data = f.read(_CHUNK_BYTES)
-                    spans.count("fastq_bytes", len(data))
-                    if not data and not buf.strip(b"\n"):
-                        return
-                    buf += data
-                    codes, lens, names, consumed, max_seen = \
-                        native.parse_fastq_buffer(buf, max_len, batch * 4)
-                    if max_seen > max_len:
-                        raise MaxLenExceeded(max_seen)
-                    if consumed == 0 and not data:
-                        return
-                    buf = buf[consumed:]
-                    # Chunk-boundary hazard (found at 100-locus
-                    # scale): when a record's trailing newline falls
-                    # EXACTLY on the chunk boundary, the parser consumes
-                    # the record (its qual is complete — qual length must
-                    # equal seq length, so nothing can follow) and the
-                    # orphan '\n' arrives at the head of the next chunk,
-                    # where the parser refuses to parse anything
-                    # (consumed=0) and the stream silently truncates.
-                    buf = buf.lstrip(b"\n")
-                    if names:
-                        yield codes[:len(names)], lens[:len(names)], names
-
-        def take(self, n):
-            have = sum(c[0].shape[0] - c[3] for c in self._parts)
-            while have < n and not self.eof:
-                nxt = next(self._gen, None)
-                if nxt is None:
-                    self.eof = True
-                    break
-                self._parts.append([nxt[0], nxt[1], nxt[2], 0])
-                have += nxt[0].shape[0]
-            out_c, out_l, out_n = [], [], []
-            need = n
-            while need and self._parts:
-                codes, lens, names, off = self._parts[0]
-                k = min(need, codes.shape[0] - off)
-                out_c.append(codes[off:off + k])
-                out_l.append(lens[off:off + k])
-                out_n.extend(names[off:off + k])
-                need -= k
-                if off + k == codes.shape[0]:
-                    self._parts.pop(0)
-                else:
-                    self._parts[0][3] = off + k
-            if not out_c:
-                return None, None, []
-            return (np.concatenate(out_c), np.concatenate(out_l), out_n)
-
-    q1, q2 = _ChunkQueue(path1), _ChunkQueue(path2)
-    while True:
-        # The span closes before the yield: a consumer's wait is not the
-        # reader's work.
-        with spans.span("recruit.read", parent=span_parent) as read:
-            c1, l1, n1 = q1.take(batch)
-            c2, l2, n2 = q2.take(batch)
-            n = min(len(n1), len(n2))
-            read.attrs["pairs"] = n
-            if n == batch:
-                item = (n1, c1, l1.astype(np.int32), c2,
-                        l2.astype(np.int32), batch)
-            elif n:
-                # Pad the final partial batch to the full batch shape so
-                # device kernels see one stable shape.
-                m1 = np.full((batch, max_len), 4, np.int8)
-                m2 = np.full((batch, max_len), 4, np.int8)
-                m1[:n] = c1[:n]
-                m2[:n] = c2[:n]
-                fl1 = np.zeros(batch, np.int32)
-                fl2 = np.zeros(batch, np.int32)
-                fl1[:n] = l1[:n]
-                fl2[:n] = l2[:n]
-                item = (n1[:n], m1, fl1, m2, fl2, n)
-        if n == 0:
-            return
-        yield item
-        if n < batch:
-            return
+    mates = [Prefetch(_mate_blocks(path, mate, batch, max_len, mate == 1,
+                                   span_parent), name=f"fastq-mate{mate}")
+             for mate, path in ((1, path1), (2, path2))]
+    try:
+        while True:
+            # The span closes before the yield: a consumer's wait is not
+            # the reader's work.
+            with spans.span("recruit.read", parent=span_parent) as read:
+                b1, b2 = (next(m, None) for m in mates)
+                n = min(b1.rows if b1 else 0, b2.rows if b2 else 0)
+                read.attrs["pairs"] = n
+                if 0 < n < batch:
+                    # Pad the final partial batch to the full batch shape
+                    # so device kernels see one stable shape.
+                    for b in (b1, b2):
+                        b.codes[n:] = dna.N_CODE
+                        b.lens[n:] = 0
+                if n:
+                    item = (b1.names[:n], b1.codes, b1.lens, b2.codes,
+                            b2.lens, n)
+            if n == 0:
+                return
+            yield item
+            if n < batch:
+                return
+    finally:
+        for m in mates:
+            m.close()
 
 
 def _pack_pairs(names, r1s, r2s, max_len):

@@ -12,57 +12,86 @@ import gzip
 import hashlib
 import io
 import os
+import queue
 import shutil
+import threading
 from contextlib import contextmanager
 from pathlib import Path
 
 SUCCESS = "success"
 
 
-def prefetch_iter(gen, depth: int = 2):
-    """Runs a generator in a background thread, keeping up to `depth`
-    items ready: decompression + native parsing release the GIL, so the
-    producer genuinely overlaps the consumer's scatter/pack/dispatch
-    work.  Exceptions (e.g. fastx.MaxLenExceeded) re-raise in the consumer."""
-    import queue
-    import threading
+class Prefetch:
+    """Runs a generator on a thread of its own, started at once, keeping up
+    to `depth` items ready: inflate and the native parser release the GIL,
+    so the producer overlaps the consumer's work.  Iterating yields the
+    generator's items; an exception it raises (e.g. fastx.MaxLenExceeded)
+    is raised in the consumer.  `close()` (or leaving a `with` block) stops
+    the thread, which closes the generator, and joins it: no thread
+    outlives its consumer."""
 
-    q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
     _END, _ERR = object(), object()
-    stop = [False]
 
-    def _put(item) -> bool:
-        while not stop[0]:
+    def __init__(self, gen, depth: int = 2, name: str = "prefetch"):
+        self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+        self._stop = threading.Event()
+        self._done = False
+        self._thread = threading.Thread(target=self._run, args=(gen,),
+                                        name=name, daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
             try:
-                q.put(item, timeout=0.5)
+                self._q.put(item, timeout=0.05)
                 return True
             except queue.Full:
                 continue
         return False
 
-    def worker():
+    def _run(self, gen):
         try:
             for item in gen:
-                if not _put(item):
+                if not self._put(item):
                     return
-        except BaseException as exc:      # noqa: BLE001 — re-raised below
-            _put((_ERR, exc))
+        except BaseException as exc:      # noqa: BLE001 — re-raised by next
+            self._put((self._ERR, exc))
             return
-        _put(_END)
+        finally:
+            gen.close()
+        self._put(self._END)
 
-    t = threading.Thread(target=worker, daemon=True)
-    t.start()
-    try:
-        while True:
-            item = q.get()
-            if item is _END:
-                return
-            if (isinstance(item, tuple) and len(item) == 2
-                    and item[0] is _ERR):
-                raise item[1]
-            yield item
-    finally:
-        stop[0] = True
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._done:
+            raise StopIteration
+        item = self._q.get()
+        if item is self._END:
+            self._done = True
+            raise StopIteration
+        if type(item) is tuple and len(item) == 2 and item[0] is self._ERR:
+            self._done = True
+            raise item[1]
+        return item
+
+    def close(self) -> None:
+        self._done = True
+        self._stop.set()
+        while self._thread.is_alive():      # unblock a put, then join
+            try:
+                self._q.get(timeout=0.01)
+            except queue.Empty:
+                pass
+        self._thread.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
 
 def smart_open(path):

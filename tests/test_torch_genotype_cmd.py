@@ -491,11 +491,12 @@ def test_the_call_leaves_a_well_formed_tree(traced_call):
     assert root.parent is None and root.call == root.id
     names = {s.name for s in kept}
     assert {"entry.load", "entry.write", "recruit", "recruit.index",
-            "recruit.parse", "recruit.read", "recruit.dispatch",
-            "recruit.decide", "recruit.scatter", "align", "align.vote",
-            "align.jobs", "align.wait", "align.dispatch", "align.post",
-            "solve", "solve.prep", "solve.filter", "solve.stage1",
-            "solve.stage2", "solve.final"} <= names
+            "recruit.parse", "recruit.read", "recruit.mate",
+            "recruit.dispatch", "recruit.decide", "recruit.scatter",
+            "align", "align.vote", "align.jobs", "align.wait",
+            "align.dispatch", "align.post", "solve", "solve.prep",
+            "solve.filter", "solve.stage1", "solve.stage2",
+            "solve.final"} <= names
     for s in kept:
         assert root.start <= s.start <= s.end <= root.end, s
         layer, dot, _ = s.name.partition(".")
@@ -505,7 +506,7 @@ def test_the_call_leaves_a_well_formed_tree(traced_call):
             assert s.parent is root, s
         else:
             assert s.parent.name == layer and s.parent.call == root.id, s
-    off_main = ("align.vote", "align.jobs", "recruit.read")
+    off_main = ("align.vote", "align.jobs", "recruit.read", "recruit.mate")
     workers = {s.thread for s in kept if s.name in off_main}
     assert workers and root.thread not in workers
     assert all(s.thread == root.thread for s in kept

@@ -4,7 +4,7 @@ flanks of 30 kb read at 30x, about 9,000 off-target pairs behind 800 locus
 pairs.  `recruit_reads_fast` recruits exactly the pairs that the
 benchmark's plain reference recruits, at the main path's batch and at a
 small one, with parse chunks that cut across batches; `genotype` calls the
-truth, and its counters and the reader thread's spans add up."""
+truth, and its counters and the reader threads' spans add up."""
 import gzip
 import json
 from pathlib import Path
@@ -89,9 +89,27 @@ def test_genotype_calls_the_truth_and_counts_the_stream(world):
     mine = [s for s in kept if s.call == root.id]
     (layer,) = [s for s in mine if s.name == "recruit"]
     reads = [s for s in mine if s.name == "recruit.read"]
-    assert reads and sum(s.attrs["pairs"] for s in reads) == world.n_pairs
-    for s in reads:
-        assert s.thread != root.thread and s.parent is layer
+    assert reads and sum(s.attrs["pairs"] for s in reads) \
+        == counters["pairs_parsed"]
+    mates = {m: [s for s in mine if s.name == "recruit.mate"
+                 and s.attrs["mate"] == m] for m in (1, 2)}
+    for m, chunks in mates.items():
+        assert sum(s.attrs["records"] for s in chunks) \
+            == counters["pairs_parsed"], m
+    # One thread a mate file, and one more that pairs their blocks.
+    threads = {m: {s.thread for s in chunks} for m, chunks in mates.items()}
+    assert len(threads[1]) == len(threads[2]) == 1
+    assert len(threads[1] | threads[2] | {root.thread}) == 3
+    assert {s.thread for s in reads}.isdisjoint(
+        threads[1] | threads[2] | {root.thread})
+    for s in reads + mates[1] + mates[2]:
+        assert s.parent is layer
         assert layer.start <= s.start <= s.end <= layer.end
+    # Names are decoded for the recruited rows alone: once a locus a pair.
+    assert counters["pairs_recruited"] <= counters["names_decoded"] \
+        <= 2 * counters["pairs_recruited"]
+    assert 5 * counters["names_decoded"] < counters["pairs_parsed"]
     line = spans.summary(root)
-    assert "read " in line and "k3_rows=" in line and "fastq_bytes=" in line
+    for part in ("read ", "mate ", "k3_rows=", "fastq_bytes=",
+                 "names_decoded="):
+        assert part in line, part
