@@ -19,11 +19,11 @@ reference-default scheme) on simulated samples whose truth is known:
        every candidate alignment to aln.bam and aln.sam.gz; the files are
        read back with the port's BAM reader;
   (b)  one HLA-scale locus: 200 haplotypes in 10 clades, 20,100 genotypes at
-       the stage-0 filter, recruited by `commands.genotype.recruit_reads`
+       the stage-0 filter, recruited by `pipeline.recruit_records`
        (the iterator entry, device pair batches);
   (c)  a long-read panel: 3 loci x 4 haplotypes of 16,384 bp, single reads
        of 12,000 +- 2,000 bases at 10x plus 5x background, recruited by
-       `recruit_reads` in long device batches, aligned at band 160;
+       `recruit_records` in long device batches, aligned at band 160;
   (d)  a WGS-like sample through the command line, `add`, `preproc` and
        `genotype`: one contig of 9,000,000 bases of varying GC with the
        loci of (a) in its first 2 Mb, and about 450,000 read pairs (150 bp,
@@ -45,7 +45,7 @@ reference-default scheme) on simulated samples whose truth is known:
        between random flanks of 50 kb, ONT-like single reads (2 % / 0.8 % /
        0.8 % errors) of 20 +- 5 kb at 8x, at least 8 reads of 65,537 to
        98,304 bases, and 4x of background from the left flank, recruited by
-       `recruit_reads` (full-width front end at rows of 131,072), aligned at
+       `recruit_records` (full-width front end at rows of 131,072), aligned at
        band 160 on rows longer than 65,536, default scheme.
   (f)  extra/panel_setup.py:make_panel(100) rebuilt with the port's
        `sim.py`: 100 loci x 6 haplotypes of 4 kb between 101 random flanks
@@ -290,10 +290,11 @@ from locityper_tpu_torch.ops import solver_batched as SB
 from locityper_tpu_torch.ops import solver_chains as SC
 from locityper_tpu_torch.ops.solver import SolverConfig, build_bayes_table
 from locityper_tpu_torch.parallel import mesh as M
-from locityper_tpu_torch.pipeline import LocusData, genotype_panel
+from locityper_tpu_torch.pipeline import (LocusData, genotype_panel,
+                                          recruit_records)
 from locityper_tpu_torch.pipeline import recruit_reads as host_recruit_reads
 from locityper_tpu_torch.seq import bam as tbam
-from locityper_tpu_torch.seq import fastx
+from locityper_tpu_torch.seq import fastx, inputs
 from locityper_tpu_torch.seq.contigs import ContigSet
 from locityper_tpu_torch.seq.counts import GenomeKmerCounter, off_target_counts
 from locityper_tpu_torch.seq.cram import CramWriter
@@ -1808,8 +1809,8 @@ def run_j_path(what, tmp, wgs, rec, rp, device_args=()):
     check(rec.recruited["out_j_bam"] == got,
           f"{what}: the BAM's recruited reads differ from the CRAM's")
     names = [lc.name for lc in loci]
-    stream = list(G._indexed_read_iter(
-        G._indexed_plan([cram], reference=str(ref)),
+    stream = list(inputs.indexed_read_iter(
+        inputs.indexed_plan([cram], reference=str(ref)),
         G._load_ref_intervals(db, names), reference=str(ref)))
     check_against_host(f"{what}, the fetched stream",
                        {n: G.load_locus(db, n) for n in names},
@@ -2698,8 +2699,8 @@ def check_k_recruitment(kw, rec, rp):
                         .items()},
                        ((n, r, None) for n, r in zip(names, reads)), rp,
                        ordered=False)
-    fetched = {name for name, _, _ in G._indexed_read_iter(
-        G._indexed_plan([kw["bam"]]),
+    fetched = {name for name, _, _ in inputs.indexed_read_iter(
+        inputs.indexed_plan([kw["bam"]]),
         G._load_ref_intervals(kw["db"], [locus.name]))}
     fq_reads = set(rec.recruited["out_k"][locus.name])
     bam_reads = set(rec.recruited["out_k_bam"][locus.name])
@@ -3184,14 +3185,14 @@ def main():
             return run_main_path(
                 "(b) HLA-scale locus, 200 haplotypes", hla_loci, hla_data,
                 len(hla_reads[0]),
-                lambda: G.recruit_reads(hla_data, zip(*hla_reads), rp)[0],
+                lambda: recruit_records(hla_data, zip(*hla_reads), rp)[0],
                 bg, 48, seed)
 
         def run_c(seed=3):
             return run_main_path(
                 "(c) long reads, 3 loci x 4 haplotypes of 16,384 bp",
                 long_loci, long_data, len(long_names),
-                lambda: G.recruit_reads(long_data, long_iter(), rp_long)[0],
+                lambda: recruit_records(long_data, long_iter(), rp_long)[0],
                 bg_long, 160, seed)
 
         def run_cli():
@@ -3208,7 +3209,7 @@ def main():
                 "(e) long reads, one locus of 98,304 bp, reads up to "
                 f"{max(r.size for r in big_reads):,} bases", [big_locus],
                 big_data, len(big_reads),
-                lambda: G.recruit_reads(
+                lambda: recruit_records(
                     big_data, ((n, r, None) for n, r in zip(big_names,
                                                             big_reads)),
                     rp_big)[0], bg_big, 160, seed)
@@ -3237,7 +3238,7 @@ def main():
                 return run_main_path(
                     f"(b-mesh) HLA-scale locus, 200 haplotypes, {GRID} shards "
                     "on card 0", hla_loci, hla_data, len(hla_reads[0]),
-                    lambda: G.recruit_reads(hla_data, zip(*hla_reads),
+                    lambda: recruit_records(hla_data, zip(*hla_reads),
                                             rp)[0], bg, 48, seed, mesh=grid,
                     keep=b_mesh)
 
@@ -3379,7 +3380,7 @@ def main():
                 lambda: G.recruit_reads_fast(panel_data, fq1, fq2, rp))
             profile_main_path(
                 "(c) recruit phase alone, traced",
-                lambda: G.recruit_reads(long_data, long_iter(), rp_long))
+                lambda: recruit_records(long_data, long_iter(), rp_long))
             profile_main_path("(d) preproc, traced",
                               lambda: check(cli.main(wgs["preproc"]) == 0,
                                             "(d) preproc, traced"))

@@ -13,6 +13,7 @@ are split across processes (parallel/multihost.py).
 """
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 from pathlib import Path
@@ -22,15 +23,16 @@ import numpy as np
 from ..bg import BgDistr
 from ..model import Params
 from ..model.windows import NeighbProfile
-from ..pipeline import LocusData, genotype_locus
-from ..seq import fastx
+from ..pipeline import (LocusData, genotype_locus, recruit_reads_fast,
+                        recruit_records)
+from ..seq import fastx, inputs
 from ..seq.contigs import ContigSet
 from ..seq.counts import KmerCounts
-from ..seq.recruit import RecruitParams, TargetIndex, recruit_any
+from ..seq.recruit import RecruitParams
 from ..solvers.solve import Scheme
 from ..utils import paths, spans
 from ..utils.io import Rerun, write_success
-from ..utils.logging import Progress, get_logger
+from ..utils.logging import get_logger
 
 logger = get_logger("genotype")
 
@@ -318,332 +320,6 @@ def list_loci(db: Path) -> list[str]:
                   if (d / paths.HAPLOTYPES).exists())
 
 
-def recruit_reads(loci: dict, read_iter, recruit_params: RecruitParams,
-                  subsample=None, seed=0, batch=16384, use_device=True,
-                  device=None):
-    """Recruits all reads against all loci at once (genotype.rs:931-975).
-
-    Short pairs, short single reads and long single reads (up to 131,072
-    bases) run through the device recruiter in dense batches
-    (ops/recruit.py, bit-identical to the host engine); long pairs and
-    longer reads use the host engine, as does everything with
-    `use_device=False`.  Returns {locus: (read_pairs, names)} and the
-    recruitment speed (reads/s).
-
-    device: None = CUDA (raises without one); "cpu" = plain PyTorch.
-
-    Batch shapes: a flush uploads the rows it has.  The reference package
-    pads every flush to `batch` rows (long reads: to 2^21 / L rows) so that
-    its compiler sees few shapes; nothing is compiled per shape here, so
-    that padding is dropped.  Its width rule is kept — short rows a multiple
-    of 64 codes, long reads gathered and padded by power-of-two length
-    class, which also bounds a long batch's host buffer at 2^21 codes —
-    because the width is part of the function: rows are padded with N, a
-    minimizer window at a read's end may run into the padding, and so the
-    last w-1 positions of a read can yield minimizers that depend on how
-    much padding follows.  With the reference's widths both packages
-    decide alike on every read."""
-    from .._kernels import resolve_device
-    if use_device:
-        device = resolve_device(device)
-    index = TargetIndex(recruit_params)
-    order = list(loci)
-    for name in order:
-        index.add_locus(loci[name].contig_set, loci[name].kmer_counts)
-    index.finalize()
-    logger.info("Recruitment index: %d minimizers over %d loci",
-                index.keys.size, index.n_loci)
-    out = {name: ([], []) for name in order}
-    progress = Progress(logger, "reads")
-    rng = np.random.default_rng(seed)
-    dev = None
-    LONG_CAP = 1 << 17          # longer single reads fall back to host
-
-    def get_dev():
-        nonlocal dev
-        if dev is None:
-            from ..ops.recruit import DeviceIndex
-            dev = DeviceIndex.from_index(index)
-        return dev
-
-    # Double-buffered dispatch: the device computes batch N while the host
-    # fills batch N+1 and scatters batch N-1 (the reference's recruitment
-    # worker pipeline, recruit.rs:1103-1311, as async dispatch).
-    pending = []                # [(buf_snapshot, PendingDecisions, paired)]
-
-    def resolve_pending(keep: int = 1):
-        while len(pending) > keep:
-            buf, res, paired = pending.pop(0)
-            scatter_hits(buf, res, paired)
-
-    def scatter_hits(buf, hits, paired):
-        from ..ops.recruit import unpack_decisions
-        hits = unpack_decisions(hits.numpy(), len(order))[:len(buf)]
-        ri, li = np.nonzero(hits)
-        for i, lx in zip(ri, li):
-            name, c1, c2 = buf[i]
-            pairs, names = out[order[lx]]
-            pairs.append((c1, c2) if paired else (c1, None))
-            names.append(name)
-        progress.add(len(buf), int(hits.any(axis=1).sum()))
-
-    def _fill(seqs, L):
-        """Vectorized [len(seqs), L] padded matrix from a sequence list
-        (mask assignment; no per-read Python loop)."""
-        m = np.full((len(seqs), L), 4, np.int8)
-        lens = np.fromiter((min(c.size, L) for c in seqs), np.int64,
-                           len(seqs))
-        mask = np.arange(L)[None, :] < lens[:, None]
-        m[mask] = np.concatenate([c[:L] for c in seqs])
-        return m
-
-    def flush_pairs(buf):
-        if not buf:
-            return
-        from ..ops.recruit import run_pairs_async
-        L = max(max(c1.size, c2.size) for _, c1, c2 in buf)
-        L = -(-L // 64) * 64
-        m1 = _fill([c1 for _, c1, _ in buf], L)
-        m2 = _fill([c2 for _, _, c2 in buf], L)
-        res = run_pairs_async(get_dev(), m1, m2, device=device)
-        pending.append((list(buf), res, True))
-        buf.clear()
-        resolve_pending()
-
-    def flush_shorts(buf):
-        if not buf:
-            return
-        from ..ops.recruit import run_short_async
-        L = max(c1.size for _, c1, _ in buf)
-        L = -(-L // 64) * 64
-        m1 = _fill([c1 for _, c1, _ in buf], L)
-        res = run_short_async(get_dev(), m1, device=device)
-        pending.append((list(buf), res, False))
-        buf.clear()
-        resolve_pending()
-
-    def flush_long(L, buf):
-        """One device batch of long single reads of one length class
-        (Kadane stretch rule, ops/recruit.py run_long —
-        recruit.rs:940-997)."""
-        if not buf:
-            return
-        from ..ops.recruit import run_long_async
-        m1 = _fill([c1 for _, c1, _ in buf], L)
-        p = index.params
-        res = run_long_async(get_dev(), m1, p.stretch_minims,
-                             p.stretch_score, device=device)
-        pending.append((list(buf), res, False))
-        buf.clear()
-        resolve_pending()
-
-    pair_buf, short_buf = [], []
-    long_bufs = {}              # length class (pow2) -> list
-    for name, c1, c2 in read_iter:
-        if subsample is not None and rng.random() >= subsample:
-            continue
-        if use_device and c2 is not None and c1.size <= 500 and c2.size <= 500:
-            pair_buf.append((name, c1, c2))
-            if len(pair_buf) >= batch:
-                flush_pairs(pair_buf)
-            continue
-        if use_device and c2 is None and c1.size <= 500:
-            short_buf.append((name, c1, None))
-            if len(short_buf) >= batch:
-                flush_shorts(short_buf)
-            continue
-        if use_device and c2 is None and c1.size <= LONG_CAP:
-            L = 1024
-            while L < c1.size:
-                L *= 2
-            buf = long_bufs.setdefault(L, [])
-            buf.append((name, c1, None))
-            if len(buf) >= max((1 << 21) // L, 8):
-                flush_long(L, buf)
-            continue
-        hit = recruit_any(index, c1, c2)
-        for locus_ix in hit:
-            pairs, names = out[order[locus_ix]]
-            pairs.append((c1, c2))
-            names.append(name)
-        progress.add(1, int(bool(hit)))
-    flush_pairs(pair_buf)
-    flush_shorts(short_buf)
-    for L, buf in sorted(long_bufs.items()):
-        flush_long(L, buf)
-    resolve_pending(keep=0)
-    speed = progress.final()
-    spans.count("pairs_parsed", progress.processed)
-    spans.count("pairs_recruited", progress.recruited)
-    return out, speed
-
-
-def recruit_reads_fast(loci: dict, path1, path2, recruit_params: RecruitParams,
-                       subsample=None, seed=0, batch=32768, max_len=None,
-                       stats: dict | None = None, device=None):
-    """Native-parser + device-kernel recruitment for paired FASTQ inputs:
-    the whole path from bytes to per-locus read lists avoids per-read
-    Python, with double-buffered dispatch (the device classifies batch N
-    while the host parses N+1 and scatters N-1).
-    Returns ({locus: (read_pairs, names)}, reads/s).
-
-    stats: optional dict — gains "records" = total input pairs streamed
-    (preproc stores it as seq_info.total_reads without a second IO pass).
-
-    max_len=None sizes the batch width from the files' leading records
-    (64-bucketed); a longer read appearing mid-stream restarts the whole
-    pass at the wider bucket — reads are NEVER clipped (the reference
-    recruiter always sees full sequences, recruit.rs:852-932).
-
-    device: None = CUDA (raises without one); "cpu" = plain PyTorch."""
-    from .._kernels import resolve_device
-    from ..ops.recruit import DeviceIndex
-    from ..seq.fastx import (fast_paired_batches, MaxLenExceeded,
-                             probe_fastq_max_len, _bucket_len)
-
-    device = resolve_device(device)
-    with spans.span("recruit.index"):
-        index = TargetIndex(recruit_params)
-        order = list(loci)
-        for name in order:
-            index.add_locus(loci[name].contig_set, loci[name].kmer_counts)
-        index.finalize()
-        dev = DeviceIndex.from_index(index)
-    logger.info("Recruitment index: %d minimizers over %d loci (device)",
-                index.keys.size, index.n_loci)
-    if max_len is None:
-        with spans.span("recruit.parse"):
-            max_len = _bucket_len(probe_fastq_max_len((path1, path2)))
-    while True:
-        try:
-            return _recruit_fast_pass(order, loci, dev, path1, path2,
-                                      subsample, seed, batch, max_len,
-                                      stats=stats, device=device)
-        except MaxLenExceeded as exc:
-            new_len = _bucket_len(exc.max_seen)
-            logger.warning(
-                "Read of %d bp exceeds the %d bp batch width; restarting "
-                "recruitment at width %d (no reads are ever clipped)",
-                exc.max_seen, max_len, new_len)
-            max_len = new_len
-
-
-def _recruit_fast_pass(order, loci, dev, path1, path2, subsample, seed,
-                       batch, max_len, stats: dict | None = None,
-                       device=None):
-    """One full recruitment pass at a fixed batch width (recruit_reads_fast
-    restarts it on MaxLenExceeded).  A parsed batch is dispatched whole,
-    with the rows it has, to one device or split over the local cards."""
-    from ..seq.fastx import fast_paired_batches
-    from ..ops.recruit import run_pairs_async, unpack_decisions
-    from ..parallel.mesh import MeshPairRecruiter, resolve_mesh
-
-    # Several cards: shard each batch over the grid (linear recruitment
-    # scaling across cards, no collectives); one device keeps the plain
-    # asynchronous path.
-    mesh = resolve_mesh("auto", device)
-    if mesh is not None:
-        dispatch = MeshPairRecruiter(mesh, dev).run_async
-        logger.info("Recruitment sharded over %d devices", mesh.devices.size)
-    else:
-        def dispatch(m1, m2):
-            return run_pairs_async(dev, m1, m2, device=device)
-
-    out = {name: ([], []) for name in order}
-    progress = Progress(logger, "reads")
-    rng = np.random.default_rng(seed)
-
-    def scatter(entry):
-        names, m1, l1, m2, l2, count, keep, res = entry
-        # Vectorized hit grouping (VERDICT r1 weak #1): non-recruited reads
-        # cost zero Python; per-read work only for actual hits.  Decisions
-        # arrive as packed [B, G] uint32 bitmaps, and only rows with ANY
-        # hit are unpacked — the any() test runs on the packed words
-        # directly.  m1/m2 live in the pending entry until here: recruited
-        # rows are copied out of them after the decision has arrived.
-        with spans.span("recruit.decide"):
-            packed = res.numpy()[:count]
-        with spans.span("recruit.scatter"):
-            live = packed.any(axis=1)
-            if keep is not None:
-                live &= keep
-            rows = np.nonzero(live)[0]
-            rec = int(rows.size)
-            if rec:
-                hits = unpack_decisions(packed[rows], len(order))
-                ri, li = np.nonzero(hits)
-                cache = {int(i): (m1[i, :l1[i]].copy(), m2[i, :l2[i]].copy())
-                         for i in rows}
-                for i, lx in zip(rows[ri], li):
-                    pairs, nms = out[order[lx]]
-                    pairs.append(cache[int(i)])
-                    nms.append(names[i])
-            progress.add(count, rec)
-
-    import time as _time
-
-    pending = []
-    first_scatter = [None]       # dispatch time of batch 1
-
-    def scatter_first_aware(entry):
-        if first_scatter[0] is not None:
-            # First result materializes here — everything before it is
-            # the kernels' build (first use in a fresh checkout) + the
-            # first roundtrip.  No explicit block on batch 1: parsing
-            # batch 2 overlaps the first device pass.
-            t0 = first_scatter[0]
-            first_scatter[0] = None
-            scatter(entry)
-            dt = _time.perf_counter() - t0
-            if dt > 5.0:
-                logger.info("Recruitment kernel ready in %.0f s (build; "
-                            "cached for subsequent runs)", dt)
-            if pending:
-                # More batches coming: report steady-state throughput.
-                # (A 1-2 batch input keeps the full clock — resetting
-                # would divide all counts by ~zero elapsed.)
-                progress.reset_clock()
-            return
-        scatter(entry)
-
-    from ..utils.io import Prefetch
-    # The mates are inflated and parsed on a thread each, and paired into
-    # batches on a third (zlib and the native parser release the GIL):
-    # batch N+1 is read while this thread scatters N-1 and feeds the
-    # device with N.  Leaving the block stops and joins all three.
-    with Prefetch(fast_paired_batches(
-            path1, path2, batch=batch, max_len=max_len,
-            span_parent=spans.current()), depth=2) as batches:
-        while True:
-            with spans.span("recruit.parse"):
-                item = next(batches, None)
-            if item is None:
-                break
-            names, m1, l1, m2, l2, count = item
-            with spans.span("recruit.dispatch"):
-                keep = (rng.random(count) < subsample) \
-                    if subsample is not None else None
-                if first_scatter[0] is None and not pending:
-                    first_scatter[0] = _time.perf_counter()
-                pending.append((names, m1, l1, m2, l2, count, keep,
-                                dispatch(m1[:count], m2[:count])))
-            # Pipeline depth 3: the upload of batch N and the download of
-            # batch N-2's decisions overlap the device pass of batch N-1.
-            while len(pending) > 3:
-                scatter_first_aware(pending.pop(0))
-    while pending:
-        scatter_first_aware(pending.pop(0))
-    speed = progress.final()
-    spans.count("pairs_parsed", progress.processed)
-    spans.count("pairs_recruited", progress.recruited)
-    if stats is not None:
-        stats["records"] = progress.processed
-    return out, speed
-
-
-FETCH_PADDING = 2000   # fetch-region padding around loci (genotype.rs:792)
-
-
 def _load_ref_intervals(db: Path, names):
     """Reference intervals of the loci (db/<locus>/ref.bed, written by
     `add`); None when any locus lacks one (fall back to full scan)."""
@@ -655,151 +331,6 @@ def _load_ref_intervals(db: Path, names):
         fields = p.read_text().split()
         out.append((fields[0], int(fields[1]), int(fields[2])))
     return out
-
-
-def _merge_regions(regions, padding: int):
-    """{chrom: [(start, end), ...]} with padding applied and overlaps
-    merged (genotype.rs:792-870 assembles fetch regions the same way)."""
-    per: dict = {}
-    for chrom, s, e in regions:
-        per.setdefault(chrom, []).append([max(s - padding, 0), e + padding])
-    for ivs in per.values():
-        ivs.sort()
-        merged = [ivs[0]]
-        for iv in ivs[1:]:
-            if iv[0] <= merged[-1][1]:
-                merged[-1][1] = max(merged[-1][1], iv[1])
-            else:
-                merged.append(iv)
-        ivs[:] = merged
-    return per
-
-
-def _indexed_plan(inputs, reference=None):
-    """[(kind, path)] when EVERY input is an alignment file with an index
-    on disk (.bam+.bai / .cram+.crai) — the only case where fetch-region
-    recruitment can replace the full scan; else None (fastx.rs:586-887:
-    htslib's indexed reader, any number of inputs)."""
-    plans = []
-    for p in inputs:
-        sp = str(p)
-        if sp.endswith(".bam") and Path(sp + ".bai").exists():
-            plans.append(("bai", p))
-        elif sp.endswith(".cram") and Path(sp + ".crai").exists():
-            if reference is None:
-                return None       # reference-based slices need the FASTA
-            plans.append(("crai", p))
-        else:
-            return None
-    return plans
-
-
-def _pair_fetched(records):
-    """(name, seq1, seq2|None) from a fetched record stream of ONE file:
-    mates pair by name within the fetched set; orphans (mate outside
-    every region) pass as single (fastx.rs:640-660)."""
-    pending: dict = {}
-    for rec in records:
-        if not rec.is_paired:
-            yield rec.name, rec.seq, None
-            continue
-        other = pending.pop(rec.name, None)
-        if other is None:
-            pending[rec.name] = rec
-        else:
-            r1, r2 = (rec, other) if rec.mate_ix == 0 else (other, rec)
-            yield r1.name, r1.seq, r2.seq
-    for rec in pending.values():
-        yield rec.name, rec.seq, None
-
-
-def _bai_records(bam_path, per, unplaced: bool = True):
-    from ..seq import bai as baio
-
-    idx = baio.BaiIndex.load(str(bam_path) + ".bai")
-    with open(bam_path, "rb") as fh:
-        names, _lens = baio.read_header(baio.VirtualReader(fh))
-    rid_of = {n: i for i, n in enumerate(names)}
-    for chrom, ivs in per.items():
-        rid = rid_of.get(chrom)
-        if rid is None:
-            continue
-        for s, e in ivs:
-            yield from baio.fetch(bam_path, idx, rid, s, e)
-    if unplaced:
-        yield from baio.fetch_unplaced(bam_path, idx)
-
-
-def _crai_records(cram_path, per, reference, unplaced: bool = True):
-    """One CramFile serves every region (opening one parses the reference
-    FASTA — per-region reopens would re-decode the genome per interval)."""
-    from ..seq import crai as craio
-    from ..seq.cram import CramFile
-
-    idx = craio.CraiIndex.load(str(cram_path) + ".crai")
-    with CramFile(cram_path, reference) as cf:
-        rid_of = {n: i for i, n in enumerate(cf.ref_names)}
-        for chrom, ivs in per.items():
-            rid = rid_of.get(chrom)
-            if rid is None:
-                continue
-            for s, e in ivs:
-                yield from craio.fetch(cram_path, idx, rid, s, e, cram=cf)
-        if unplaced:
-            yield from craio.fetch_unplaced(cram_path, idx, cram=cf)
-
-
-def _indexed_read_iter(plans, regions, padding: int = FETCH_PADDING,
-                       reference=None):
-    """(name, seq1, seq2|None) via indexed fetch over the padded, merged
-    locus regions plus the unplaced tail, across ANY number of indexed
-    BAM/CRAM inputs — the reference's fetch-region recruitment
-    (genotype.rs:792-870, fastx.rs:586-887).  Each input is an
-    independent read set; mates pair within their own file."""
-    import contextlib
-    per = _merge_regions(regions, padding)
-    for kind, path in plans:
-        maker = (_bai_records(path, per) if kind == "bai"
-                 else _crai_records(path, per, reference))
-        # closing() propagates an early-exit close into the record
-        # generator so the underlying BAM/CRAM handle is released
-        # deterministically, not at GC time.
-        with contextlib.closing(maker) as records:
-            yield from _pair_fetched(records)
-
-
-def _is_alignment_file(path) -> bool:
-    return str(path).endswith((".bam", ".cram"))
-
-
-def _read_iter(inputs, interleaved, reference=None):
-    """Yields (name, seq1, seq2|None) over the input set.
-
-    Mirrors the reference's input breadth (seq/fastx.rs:586-887): exactly
-    two FASTX files = one paired read set; otherwise every entry (from -i
-    or -I in-lists, freely mixing BAM/CRAM/FASTX) is an independent read
-    set streamed in order.  BAM/CRAM pairing is auto-detected per file;
-    --interleaved applies to single FASTX files."""
-    if (len(inputs) == 2 and not _is_alignment_file(inputs[0])
-            and not _is_alignment_file(inputs[1])):
-        for r1, r2 in fastx.read_pairs(inputs[0], inputs[1]):
-            yield r1.name, r1.seq, r2.seq
-        return
-    for path in inputs:
-        if _is_alignment_file(path):
-            from ..seq import bam as bamio
-            if bamio.is_paired_bam(path, reference=reference):
-                for r1, r2 in bamio.read_bam_pairs(path, reference=reference):
-                    yield r1.name, r1.seq, r2.seq
-            else:
-                for r in bamio.read_bam(path, reference=reference):
-                    yield r.name, r.seq, None
-        elif interleaved:
-            for r1, r2 in fastx.read_pairs(path, interleaved=True):
-                yield r1.name, r1.seq, r2.seq
-        else:
-            for r in fastx.read_fastx_auto(path):
-                yield r.name, r.seq, None
 
 
 #: Counter of the call -> kernel of `_kernels.LAUNCHES` whose launches it
@@ -915,36 +446,21 @@ def _run(args):
                 need[name] = loci[name]
     if need:
         with spans.span("recruit"):
-            from ..seq.fastx import is_fastq_files
-            if (len(args.input) == 2 and tech.are_short_reads
-                    and not _is_alignment_file(args.input[0])
-                    and not _is_alignment_file(args.input[1])
-                    and is_fastq_files(args.input)):
+            if inputs.takes_fastq_blocks(args.input,
+                                         interleaved=args.interleaved,
+                                         short_reads=tech.are_short_reads):
                 rec, _ = recruit_reads_fast(
                     need, args.input[0], args.input[1], rp,
                     subsample=args.subsample, seed=args.seed, device=device)
             else:
-                reads_iter = None
-                ref_fa = getattr(args, "reference", None)
-                plans = _indexed_plan(args.input, reference=ref_fa)
-                if plans is not None:
-                    intervals = _load_ref_intervals(db, list(need))
-                    if intervals is not None:
-                        logger.info("Indexed input: fetching %d locus "
-                                    "region(s) + unplaced tail from %d "
-                                    "file(s) instead of a full scan",
-                                    len(intervals), len(plans))
-                        reads_iter = _indexed_read_iter(plans, intervals,
-                                                        reference=ref_fa)
-                if reads_iter is None:
-                    reads_iter = _read_iter(
-                        args.input, args.interleaved,
-                        reference=getattr(args, "reference", None))
-                import contextlib
-                with contextlib.closing(reads_iter):
-                    rec, _ = recruit_reads(need, reads_iter, rp,
-                                           subsample=args.subsample,
-                                           seed=args.seed, device=device)
+                records = inputs.open_records(
+                    args.input, args.interleaved,
+                    reference=getattr(args, "reference", None),
+                    regions=_load_ref_intervals(db, list(need)))
+                with contextlib.closing(records):
+                    rec, _ = recruit_records(need, records, rp,
+                                             subsample=args.subsample,
+                                             seed=args.seed, device=device)
         recruited.update(rec)
         with spans.span("entry.write"):
             for name in need:

@@ -17,7 +17,7 @@ import numpy as np
 
 from ..bg import Technology
 from ..pipeline import estimate_bg_from_reads
-from ..seq import fastx
+from ..seq import fastx, inputs
 from ..seq.counts import GenomeKmerCounter
 from ..utils import paths
 from ..utils.io import Rerun, write_success
@@ -133,21 +133,6 @@ def _count_input(paths) -> tuple[int, int]:
     return total_reads, total_size
 
 
-class _CountingIter:
-    """Wraps a (name, seq1, seq2|None) read iterator, tallying yielded
-    records so preproc can store seq_info.total_reads without re-scanning
-    the input (one item = one read pair for paired data)."""
-
-    def __init__(self, it):
-        self._it = it
-        self.n_records = 0
-
-    def __iter__(self):
-        for item in self._it:
-            self.n_records += 1
-            yield item
-
-
 def run_like(args) -> int:
     """--like path: clone distributions, rescale depth (preproc.rs:1240-1352)."""
     from ..bg import BgDistr
@@ -261,9 +246,8 @@ def _input_is_paired(args) -> bool:
 def _load_head(args):
     """--skip-recruitment path: first --max-reads reads of the input."""
     reads1, reads2 = [], []
-    from .genotype import _read_iter
-    for _name, c1, c2 in _read_iter(args.input, args.interleaved,
-                                    reference=args.reference):
+    for _name, c1, c2 in inputs.read_records(args.input, args.interleaved,
+                                             reference=args.reference):
         reads1.append(c1)
         if c2 is not None:
             reads2.append(c2)
@@ -289,11 +273,10 @@ def _recruit_bg_reads(args, genome, chrom, start, end, counter, tech,
     device: None = CUDA (raises without one); "cpu" = plain PyTorch."""
     from types import SimpleNamespace
 
+    from ..pipeline import recruit_reads_fast, recruit_records
     from ..seq.contigs import ContigSet
     from ..seq.counts import KmerCounts
     from ..seq.recruit import RecruitParams
-    from .genotype import (_is_alignment_file, _read_iter, recruit_reads,
-                           recruit_reads_fast)
 
     seq = genome[chrom]
     pad_lo = max(start - BG_PADDING, 0)
@@ -305,26 +288,21 @@ def _recruit_bg_reads(args, genome, chrom, start, end, counter, tech,
     bg_target = SimpleNamespace(
         contig_set=ContigSet("bg", ["bg"], [padded]),
         kmer_counts=padded_counts)
-    from ..seq.fastx import is_fastq_files
-    if (len(args.input) == 2 and tech.are_short_reads
-            and not args.interleaved
-            and not _is_alignment_file(args.input[0])
-            and not _is_alignment_file(args.input[1])
-            and is_fastq_files(args.input)):
-        # 2-FASTQ short reads: the native-parser fast path (no per-read
-        # Python), same engine the genotype command uses; it counts the
-        # streamed records for seq_info.total_reads.
-        fstats: dict = {}
+    # Both paths count the streamed records (pairs) for
+    # seq_info.total_reads, so no second IO pass is needed.
+    fstats: dict = {}
+    if inputs.takes_fastq_blocks(args.input, interleaved=args.interleaved,
+                                 short_reads=tech.are_short_reads):
+        # 2-FASTQ short reads: the native-parser block reader (no
+        # per-read Python), the same engine the genotype command uses.
         out, speed = recruit_reads_fast({"bg": bg_target}, args.input[0],
                                         args.input[1], params, seed=0,
                                         stats=fstats, device=device)
-        n_records = fstats["records"]
     else:
-        stream = _CountingIter(_read_iter(args.input, args.interleaved,
-                                          reference=args.reference))
-        out, speed = recruit_reads({"bg": bg_target}, stream, params, seed=0,
-                                   device=device)
-        n_records = None
+        records = inputs.read_records(args.input, args.interleaved,
+                                      reference=args.reference)
+        out, speed = recruit_records({"bg": bg_target}, records, params,
+                                     seed=0, stats=fstats, device=device)
     pairs, _names = out["bg"]
     logger.info("Recruited %d read%s to the background region (%.1fk reads/s)",
                 len(pairs), " pairs" if paired else "s", speed / 1e3)
@@ -342,9 +320,7 @@ def _recruit_bg_reads(args, genome, chrom, start, end, counter, tech,
     reads1 = [p[0] for p in pairs]
     reads2 = [p[1] for p in pairs] if (paired and pairs[0][1] is not None) \
         else []
-    if n_records is None:
-        n_records = stream.n_records
-    return reads1, reads2, padded, rate, n_records
+    return reads1, reads2, padded, rate, fstats["records"]
 
 
 def _fetch_bg_reads(args, genome, chrom, start, end):
@@ -353,10 +329,7 @@ def _fetch_bg_reads(args, genome, chrom, start, end):
     the whole input — any mix of indexed BAM (.bai) / CRAM (.crai) files;
     no recruitment needed (the fetch IS region restriction).
     Returns (reads1, reads2, padded_region) or None when not applicable."""
-    from .genotype import (_bai_records, _crai_records, _indexed_plan,
-                           _pair_fetched)
-
-    plans = _indexed_plan(args.input or [], reference=args.reference)
+    plans = inputs.indexed_plan(args.input or [], reference=args.reference)
     if not plans:
         return None
     seq = genome[chrom]
@@ -368,12 +341,14 @@ def _fetch_bg_reads(args, genome, chrom, start, end):
         # Region-only fetch (unplaced=False): unplaced tails are
         # irrelevant for bg depth — skip decoding them entirely.
         if kind == "bai":
-            recs = _bai_records(path, per, unplaced=False)
+            recs = inputs.bai_records(path, per, unplaced=False)
         else:
-            recs = _crai_records(path, per, args.reference, unplaced=False)
-        # Mates pair within their own file (_pair_fetched); orphans whose
-        # mate fell outside the region pass as single reads.
-        for _name, s1, s2 in _pair_fetched(r for r in recs if r.pos >= 0):
+            recs = inputs.crai_records(path, per, args.reference,
+                                       unplaced=False)
+        # Mates pair within their own file (inputs.pair_fetched); orphans
+        # whose mate fell outside the region pass as single reads.
+        for _name, s1, s2 in inputs.pair_fetched(
+                r for r in recs if r.pos >= 0):
             if s2 is None:
                 singles.append(s1)
             else:

@@ -9,7 +9,8 @@ from pathlib import Path
 
 import numpy as np
 
-from ..seq import fastx
+from ..pipeline import SHORT_CAP, recruit_reads_fast, recruit_records
+from ..seq import fastx, inputs
 from ..seq.contigs import ContigSet
 from ..seq.counts import KmerCounts
 from ..seq.recruit import RecruitParams
@@ -81,31 +82,20 @@ def run(args):
     if not single_out and len(args.output) != len(targets):
         raise SystemExit("Number of outputs must be 1 or match targets")
 
-    # Stream through the shared batched engine (device recruiter,
-    # double-buffered) — the standalone command gets the same throughput
-    # as the genotype pipeline, including the native-parser fast path for
-    # 2-FASTQ inputs (no per-read Python).
-    from .genotype import (_is_alignment_file, _read_iter, recruit_reads,
-                           recruit_reads_fast)
-
-    from ..seq.fastx import is_fastq_files, probe_fastq_max_len
-
+    # The genotype command's recruitment: the two-file FASTQ block reader
+    # for short pairs (no per-read Python), the per-record path otherwise.
+    # Pairs over 500 bp keep the per-record path, which gives them to the
+    # host engine (the pair kernel has short-read semantics).
     device = getattr(args, "device", None)
-
-    if (len(args.input) == 2 and not args.interleaved
-            and not _is_alignment_file(args.input[0])
-            and not _is_alignment_file(args.input[1])
-            and is_fastq_files(args.input)
-            # Pair kernel = short-read semantics; long pairs keep the
-            # general engine (recruit_reads routes them appropriately).
-            and probe_fastq_max_len(args.input) <= 500):
+    if inputs.takes_fastq_blocks(args.input, interleaved=args.interleaved,
+                                 max_pair_len=SHORT_CAP):
         out, _speed = recruit_reads_fast(
             targets, args.input[0], args.input[1], params,
             subsample=args.subsample, seed=args.seed, device=device)
     else:
-        out, _speed = recruit_reads(
-            targets, _read_iter(args.input, args.interleaved), params,
-            subsample=args.subsample, seed=args.seed, device=device)
+        out, _speed = recruit_records(
+            targets, inputs.read_records(args.input, args.interleaved),
+            params, subsample=args.subsample, seed=args.seed, device=device)
 
     writers = [smart_create(p) for p in args.output]
     order = list(targets)

@@ -117,61 +117,11 @@ class HapMinimizerIndex:
         self.fwd = np.concatenate(fwds)[order] if keys else np.empty(0, bool)
         self.n_haps = len(contig_set.seqs)
 
-    def candidates(self, codes: np.ndarray, w: int, band: int,
-                   min_votes: int, max_per_hap: int):
-        """Returns list of (hap, orient, diag) candidates for one read.
-        orient 0 = forward read, 1 = reverse-complement; diag = approximate
-        alignment start of the (oriented) read on the haplotype."""
-        pos, vals, fwd = minimizers32(codes, self.k, w)
-        if pos.size == 0:
-            return []
-        lo = np.searchsorted(self.keys, vals, side="left")
-        hi = np.searchsorted(self.keys, vals, side="right")
-        rlen = codes.size
-        out = {}
-        for t in range(pos.size):
-            for e in range(int(lo[t]), int(hi[t])):
-                hp = int(self.hap[e])
-                same = bool(self.fwd[e]) == bool(fwd[t])
-                if same:
-                    orient, diag = 0, int(self.pos[e]) - int(pos[t])
-                else:
-                    # rc-read position of this k-mer: rlen - k - pos.
-                    orient, diag = 1, int(self.pos[e]) - (rlen - self.k - int(pos[t]))
-                bucket = diag // max(band // 2, 1)
-                key = (hp, orient, bucket)
-                if key in out:
-                    votes, dsum = out[key]
-                    out[key] = (votes + 1, dsum + diag)
-                else:
-                    out[key] = (1, diag)
-        # Merge buckets into per-(hap, orient) top candidates.
-        best: dict[tuple, list] = {}
-        for (hp, orient, _), (votes, dsum) in out.items():
-            if votes < min_votes:
-                continue
-            best.setdefault((hp, orient), []).append((votes, dsum / votes))
-        cands = []
-        for (hp, orient), lst in best.items():
-            lst.sort(reverse=True)
-            for votes, diag in lst[:max_per_hap]:
-                cands.append((hp, orient, int(round(diag))))
-        return cands
-
-    def candidates_batch(self, mates, w: int, band: int, min_votes: int,
-                         max_per_hap: int):
-        """List-of-lists wrapper around `candidates_batch_flat` (kept for
-        the bg-estimation path and tests)."""
-        jm, jh, jo, jd = self.candidates_batch_flat(mates, w, band,
-                                                    min_votes, max_per_hap)
-        out = [[] for _ in mates]
-        for t in range(jm.size):
-            out[int(jm[t])].append((int(jh[t]), int(jo[t]), int(jd[t])))
-        return out
-
     def candidates_batch_flat(self, mates, w: int, band: int, min_votes: int,
                               max_per_hap: int):
-        """Vectorized `candidates` over a list of reads: one numpy pass of
+        """(haplotype, orientation, diagonal) candidates of a list of reads
+        (orient 0 = forward read, 1 = reverse complement; diag = approximate
+        start of the oriented read on the haplotype): one numpy pass of
         lookup + bucket voting + per-(read,hap,orient) top-N for the whole
         batch.  Returns flat int64 arrays (mate_ix, hap, orient, diag),
         grouped by mate."""
@@ -369,7 +319,7 @@ class MateAlnTable:
                        ws=int(self.ws[i]))
 
     def to_lists(self, n_mates: int) -> list:
-        """Per-mate `list[MateAln]` view (bg-estimation path + oracle)."""
+        """Per-mate `list[MateAln]` view (the bg-estimation path)."""
         out = [[] for _ in range(n_mates)]
         for i in range(len(self)):
             out[int(self.mate[i])].append(self.row_obj(i))
@@ -570,101 +520,6 @@ def _align_candidates(mates, jobs, contig_set, score_vec, band,
 
 
 # ---------------------------------------------------------------------------
-# Object-path helpers (oracle for the vectorized pipeline; also used by the
-# bg-estimation path).  Semantics: locs.rs:736-901.
-# ---------------------------------------------------------------------------
-
-def _neighb_complexity_at(compl_arr, middle: int, neighb: int) -> float:
-    """complexity of the neighbourhood around `middle`
-    (windows.rs:449-452)."""
-    if compl_arr.size == 0:
-        return 1.0
-    i = min(max(middle - neighb // 2, 0), compl_arr.size - 1)
-    v = float(compl_arr[i])
-    return 1.0 if np.isnan(v) else v
-
-
-def _dedup_mate_alns(alns: list) -> list:
-    """Keeps the best alignment per (hap, ~128bp start bin)
-    (PosCollection, locs.rs:174-263)."""
-    best = {}
-    for a in alns:
-        key = (a.hap, a.start >> 7)
-        b = best.get(key)
-        if b is None or a.ln_prob > b.ln_prob:
-            best[key] = a
-    return list(best.values())
-
-
-def _pair_candidates(alns1, alns2, n_haps, insert_distr, params, weight):
-    """identify_contig_pair_alns (locs.rs:736-789) for all haplotypes."""
-    insert_penalty = insert_distr.insert_penalty
-    unm_ins_penalty = params.unmapped_penalty + insert_penalty
-    max_alns = MAX_USED_ALNS if weight >= params.min_weight else MAX_UNUSED_ALNS
-    cands = []
-    for hp in range(n_haps):
-        a1 = [a for a in alns1 if a.hap == hp]
-        a2 = [a for a in alns2 if a.hap == hp]
-        if not a1 and not a2:
-            continue
-        local = []
-        max1 = np.full(len(a1), -np.inf)
-        max2 = np.full(len(a2), -np.inf)
-        if a1 and a2:
-            # Vectorized cross product (the reference's nested loop,
-            # locs.rs:752-767): opposite orientations, insert-size prob.
-            f1 = np.fromiter((a.fwd for a in a1), bool, len(a1))
-            s1 = np.fromiter((a.start for a in a1), np.int64, len(a1))
-            e1 = np.fromiter((a.end for a in a1), np.int64, len(a1))
-            p1 = np.fromiter((a.ln_prob for a in a1), np.float64, len(a1))
-            f2 = np.fromiter((a.fwd for a in a2), bool, len(a2))
-            s2 = np.fromiter((a.start for a in a2), np.int64, len(a2))
-            e2 = np.fromiter((a.end for a in a2), np.int64, len(a2))
-            p2 = np.fromiter((a.ln_prob for a in a2), np.float64, len(a2))
-            opp = f1[:, None] != f2[None, :]
-            ins = (np.maximum(e1[:, None], e2[None, :])
-                   - np.minimum(s1[:, None], s2[None, :]))
-            p = p1[:, None] + p2[None, :] + insert_distr.ln_prob(
-                ins.ravel()).reshape(ins.shape)
-            ok = opp & np.isfinite(p)
-            pm = np.where(ok, p, -np.inf)
-            max1 = pm.max(axis=1, initial=-np.inf)
-            max2 = pm.max(axis=0, initial=-np.inf)
-            for xi, yi in zip(*np.nonzero(ok)):
-                x, y = a1[xi], a2[yi]
-                local.append(PairCand(hp, float(p[xi, yi]), x.middle,
-                                      y.middle, x, y))
-        for xi, x in enumerate(a1):
-            alone = x.ln_prob + unm_ins_penalty
-            if alone >= max1[xi]:
-                local.append(PairCand(hp, alone, x.middle, -1, x, None))
-        for yi, y in enumerate(a2):
-            alone = y.ln_prob + unm_ins_penalty
-            if alone >= max2[yi]:
-                local.append(PairCand(hp, alone, -1, y.middle, None, y))
-        local.sort(key=lambda c: -c.ln_prob)
-        thresh = local[0].ln_prob - params.prob_diff
-        kept = [c for c in local[:max_alns] if c.ln_prob >= thresh]
-        cands.extend(kept)
-    return cands
-
-
-def _single_candidates(alns1, n_haps, params, weight):
-    """identify_single_end_alignments (locs.rs:863-901)."""
-    max_alns = MAX_USED_ALNS if weight >= params.min_weight else MAX_UNUSED_ALNS
-    cands = []
-    for hp in range(n_haps):
-        a1 = sorted((a for a in alns1 if a.hap == hp), key=lambda a: -a.ln_prob)
-        if not a1:
-            continue
-        thresh = a1[0].ln_prob - params.prob_diff
-        for a in a1[:max_alns]:
-            if a.ln_prob >= thresh:
-                cands.append(PairCand(hp, a.ln_prob, a.middle, -1, a, None))
-    return cands
-
-
-# ---------------------------------------------------------------------------
 # Array-native result container
 # ---------------------------------------------------------------------------
 
@@ -784,8 +639,8 @@ def build_all_alignments(read_pairs, names, contig_set: ContigSet,
     profile: the locus's NeighbProfile of this call, shared with the
     solver's inputs (None: built here on demand).
 
-    Semantics are bit-identical to `build_all_alignments_obj` (the readable
-    per-read oracle below; guarded by tests/test_locs_parity.py)."""
+    Semantics are bit-identical to the JAX package's per-read oracle
+    (tests/test_torch_locs.py holds this path against that package)."""
     gen = _build_all_alignments_gen(read_pairs, names, contig_set,
                                     kmer_counts, bg, edit_cache, params,
                                     minimizer_k, minimizer_w,
@@ -1010,7 +865,8 @@ def _build_all_alignments_gen(read_pairs, names, contig_set: ContigSet,
         c_a1=empty64, c_a2=empty64, used_mask=np.empty(0, bool))
 
     # -- A) dedup per (mate, hap, 128bp start bin): keep the best prob;
-    #       group order = first occurrence (matches dict-insertion oracle).
+    #       group order = first occurrence (as the JAX package's per-read
+    #       oracle inserts into its dict).
     if len(tbl) == 0:
         stats["poorly_mapped"] = R
         yield empty_result, stats
@@ -1155,7 +1011,7 @@ def _build_all_alignments_gen(read_pairs, names, contig_set: ContigSet,
             np.maximum.at(max_r, i2, pm)
         mid_all = tbl.middle
         # combos (kept in cross-product order), then mate-1 singles, then
-        # mate-2 singles — same insertion order as the oracle, so ties
+        # mate-2 singles — the JAX package's per-read oracle's order, so ties
         # resolve identically under the stable sort below.
         grp_read = g_read[np.nonzero(gnew)[0]]
         grp_hap = g_hap[np.nonzero(gnew)[0]]
@@ -1235,115 +1091,3 @@ def _build_all_alignments_gen(read_pairs, names, contig_set: ContigSet,
         c_a1=cand["a1"], c_a2=cand["a2"],
         used_mask=used_mask)
     yield result, stats
-
-
-def build_all_alignments_obj(read_pairs, names, contig_set: ContigSet,
-                             kmer_counts: KmerCounts, bg: BgDistr,
-                             edit_cache: EditDistCache, params: Params,
-                             minimizer_k: int = 15, minimizer_w: int = 10,
-                             device=None):
-    """Readable per-read oracle for `build_all_alignments`.  Kept for the
-    parity test; do NOT use in the hot path.
-    Returns (reads, unused_reads, stats) with ReadAlns objects."""
-    is_paired = bg.insert_distr.is_paired_end
-    tweak = params.tweak if params.tweak is not None else 0
-    boundary = params.boundary_size - tweak
-    score_vec = bg.err_prof.score_vec()
-    hap_index = HapMinimizerIndex(contig_set, minimizer_k, minimizer_w)
-    uniq = UniqueKmers(contig_set, kmer_counts,
-                       params.kmer_hard_thresh, params.kmer_soft_thresh)
-    hap_lens = [s.size for s in contig_set.seqs]
-
-    mates = []
-    mate_of_read = []
-    for r, (c1, c2) in enumerate(read_pairs):
-        mates.append(c1)
-        mate_of_read.append((r, 0))
-        if c2 is not None:
-            mates.append(c2)
-            mate_of_read.append((r, 1))
-    jobs = hap_index.candidates_batch_flat(mates, minimizer_w, params.band,
-                                           params.min_anchor_votes,
-                                           max_per_hap=3)
-    aln_lists = _align_candidates(mates, jobs, contig_set, score_vec,
-                                  params.band,
-                                  device=device).to_lists(len(mates))
-
-    reads, unused = [], []
-    n_haps = len(contig_set.seqs)
-    stats = dict(total=len(read_pairs), poorly_mapped=0, out_of_bounds=0,
-                 few_kmers=0, n_alns=0)
-    per_read: dict[int, list] = {}
-    for m_ix, alns in enumerate(aln_lists):
-        r, mate = mate_of_read[m_ix]
-        per_read.setdefault(r, [[], []])[mate] = _dedup_mate_alns(alns)
-
-    short_reads = bg.seq_info.technology.are_short_reads
-    neighb = bg.depth.neighb_size
-    compl_arrs = (NeighbProfile(contig_set, kmer_counts, neighb, params).compl
-                  if short_reads else None)
-
-    for r, (c1, c2) in enumerate(read_pairs):
-        alns1, alns2 = per_read.get(r, [[], []])
-        well_mapped = True
-        for codes, alns in ((c1, alns1), (c2, alns2)):
-            if codes is None:
-                continue
-            good, passable = edit_cache.get(codes.size)
-            if short_reads and alns:
-                prim = max(alns, key=lambda a: a.ln_prob)
-                compl = _neighb_complexity_at(
-                    compl_arrs[prim.hap], (prim.start + prim.end) // 2,
-                    neighb)
-                if compl <= params.poor_compl:
-                    thr = max(good, int(params.poor_compl_edit * codes.size))
-                    passable += thr - good
-                    good = thr
-            alns[:] = [a for a in alns if a.edit <= passable]
-            if not alns:
-                well_mapped = False
-                break
-            if min(a.edit for a in alns) > good:
-                well_mapped = False
-                break
-        if is_paired and c2 is None:
-            well_mapped = False
-        if not well_mapped:
-            stats["poorly_mapped"] += 1
-            continue
-        in_bounds = any(
-            boundary <= a.middle < hap_lens[a.hap] - boundary
-            for a in alns1 + alns2)
-        if not in_bounds:
-            stats["out_of_bounds"] += 1
-            continue
-
-        kmer_count = uniq.count_read(c1) + (uniq.count_read(c2)
-                                            if c2 is not None else 0)
-        weight = uniq.pair_weight(kmer_count)
-
-        for alns in (alns1, alns2):
-            if alns:
-                best = max(a.ln_prob for a in alns)
-                for a in alns:
-                    a.ln_prob -= best
-
-        if is_paired:
-            cands = _pair_candidates(alns1, alns2, n_haps, bg.insert_distr,
-                                     params, weight)
-            unmapped = weight * (2.0 * params.unmapped_penalty
-                                 + bg.insert_distr.insert_penalty)
-        else:
-            cands = _single_candidates(alns1, n_haps, params, weight)
-            unmapped = weight * params.unmapped_penalty
-        for cand in cands:
-            cand.ln_prob *= weight
-        cands.sort(key=lambda cnd: (cnd.hap, -cnd.ln_prob))
-        stats["n_alns"] += len(cands)
-        ra = ReadAlns(names[r], weight, unmapped, cands, read_ix=r)
-        if weight >= params.min_weight:
-            reads.append(ra)
-        else:
-            unused.append(ra)
-    stats["few_kmers"] = len(unused)
-    return reads, unused, stats

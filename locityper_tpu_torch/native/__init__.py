@@ -4,46 +4,93 @@ The library is built on demand with `make` (g++); every entry point has a
 numpy fallback in pure Python modules, so the package works without a
 toolchain — the native path is a drop-in speedup for host-side parsing and
 k-mer work (counterpart of the reference's compiled Rust host runtime).
+
+Several processes may load the package at once (test workers, the
+processes of a multi-process run, a cohort run in parallel): the build and
+the load happen under an exclusive lock on a file beside the library, and
+the Makefile writes the library under a temporary name and renames it into
+place, so no process ever loads a partly written file.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import logging
+import os
+import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
 
 _DIR = Path(__file__).parent
 _LIB_PATH = _DIR / "libkernels.so"
+_LOCK_PATH = _DIR / ".libkernels.lock"
 _lib = None
 _tried = False
+_load_lock = threading.Lock()
+
+logger = logging.getLogger("locityper.native")
 
 
-def _build() -> bool:
+def _build() -> None:
+    """Brings the library up to date with kernels.cpp (`make` does nothing
+    when it is newer).  Without `make` or a C++ compiler the numpy
+    fallbacks serve; a build that fails with both present is logged."""
+    cxx = os.environ.get("CXX", "g++")
+    if shutil.which("make") is None or shutil.which(cxx) is None:
+        return
     try:
         subprocess.run(["make", "-C", str(_DIR), "-s"], check=True,
-                       capture_output=True, timeout=120)
-        return _LIB_PATH.exists()
-    except Exception:
-        return False
+                       capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.SubprocessError) as exc:
+        logger.warning("building %s failed (numpy fallbacks in use): %s",
+                       _LIB_PATH, getattr(exc, "stderr", None) or exc)
+
+
+def _load():
+    """Builds and loads the library under an exclusive lock on a file
+    beside it, held across processes; None when there is none to load.  A
+    directory that cannot hold the lock file cannot be built in either."""
+    try:
+        fd = os.open(_LOCK_PATH, os.O_RDWR | os.O_CREAT, 0o644)
+    except OSError:
+        fd = None
+    try:
+        if fd is not None:
+            fcntl.flock(fd, fcntl.LOCK_EX)
+            _build()
+        if _LIB_PATH.exists():
+            return ctypes.CDLL(str(_LIB_PATH))
+    except OSError as exc:
+        logger.warning("loading %s failed (numpy fallbacks in use): %s",
+                       _LIB_PATH, exc)
+    finally:
+        if fd is not None:
+            os.close(fd)        # releases the lock
+    return None
 
 
 def get_lib():
-    """Returns the loaded library or None (fallback mode)."""
+    """Returns the loaded library or None (fallback mode).  The first call
+    of a process builds and loads it; later calls return that result."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
-    _tried = True
-    # `make` is a no-op when the .so is newer than kernels.cpp; running it
-    # unconditionally keeps the library in sync with source changes.
-    _build()
-    if not _LIB_PATH.exists():
-        return None
-    try:
-        lib = ctypes.CDLL(str(_LIB_PATH))
-    except OSError:
-        return None
+    with _load_lock:
+        if _tried:
+            return _lib
+        lib = _load()
+        if lib is not None:
+            _bind(lib)
+        _lib = lib
+        _tried = True
+    return _lib
 
+
+def _bind(lib) -> None:
+    """Declares the argument and result types of the library's functions."""
     i8p = np.ctypeslib.ndpointer(np.int8, flags="C")
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C")
     u32p = np.ctypeslib.ndpointer(np.uint32, flags="C")
@@ -107,8 +154,6 @@ def get_lib():
         ctypes.c_int32, i32p, i32p, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int64)]
     lib.chain_align.restype = ctypes.c_int64
-    _lib = lib
-    return _lib
 
 
 def available() -> bool:

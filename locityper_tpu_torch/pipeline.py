@@ -23,7 +23,7 @@ from .seq.recruit import RecruitParams, TargetIndex, recruit_any
 from .solvers.solve import (Genotyping, PanelItem, Scheme, solve_locus,
                             solve_panel)
 from .utils import spans
-from .utils.logging import get_logger
+from .utils.logging import Progress, get_logger
 
 logger = get_logger("pipeline")
 
@@ -35,22 +35,28 @@ class LocusData:
     dist_matrix: np.ndarray | None = None
 
 
+def _target_index(loci: dict, recruit_params: RecruitParams) -> TargetIndex:
+    index = TargetIndex(recruit_params)
+    for name in loci:
+        index.add_locus(loci[name].contig_set, loci[name].kmer_counts)
+    index.finalize()
+    return index
+
+
 def recruit_reads(loci: dict, read_iter, recruit_params: RecruitParams,
                   pad: int = 0):
     """Recruits all reads against all loci at once with the host engine
     (seq/recruit.py; genotype.rs:931-975), one read at a time: the oracle
-    that the device recruiter (commands/genotype.py) is tested against.
+    that the device recruiter (`recruit_reads_fast`, `recruit_records`) is
+    tested against.
 
     loci: {name: LocusData}; read_iter yields (name, codes1, codes2 | None).
     pad: match every read with this many N codes appended, as a device
     batch sees a read that is shorter than its row (`minimizer_w - 1` or
     more saturates the effect); the reads are returned unpadded.
     Returns {locus: (read_pairs, names)} in `loci` order."""
-    index = TargetIndex(recruit_params)
+    index = _target_index(loci, recruit_params)
     order = list(loci)
-    for name in order:
-        index.add_locus(loci[name].contig_set, loci[name].kmer_counts)
-    index.finalize()
     out = {name: ([], []) for name in order}
     tail = np.full(pad, 4, np.int8)
     for name, c1, c2 in read_iter:
@@ -61,6 +67,292 @@ def recruit_reads(loci: dict, read_iter, recruit_params: RecruitParams,
             pairs.append((c1, c2))
             names.append(name)
     return out
+
+
+#: The device takes pairs of mates up to SHORT_CAP bases, single reads up to
+#: SHORT_CAP, and single reads up to LONG_CAP in long batches; the host
+#: engine (`recruit_any`) the rest, one at a time.
+SHORT_CAP = 500
+LONG_CAP = 1 << 17
+#: Items in flight: the upload of block N and the download of block N-2's
+#: decisions overlap the device pass of block N-1.
+PIPELINE_DEPTH = 3
+
+
+@dataclass
+class ReadBlock:
+    """One device batch: the first `count` rows of `m1` (and of `m2`, mate
+    2, in a batch of pairs) hold N-padded codes, `l1` (`l2`) their lengths
+    and `names[i]` row i's name; `keep` marks the rows a subsample keeps;
+    `long` takes single reads to the long-read decision (stretch rule)."""
+    names: object               # list of str, or fastx.NameColumn
+    m1: np.ndarray
+    l1: np.ndarray
+    count: int
+    m2: np.ndarray | None = None
+    l2: np.ndarray | None = None
+    keep: np.ndarray | None = None
+    long: bool = False
+
+
+def _recruit_index(loci: dict, recruit_params: RecruitParams):
+    from .ops.recruit import DeviceIndex
+    with spans.span("recruit.index"):
+        index = _target_index(loci, recruit_params)
+        dev = DeviceIndex.from_index(index)
+    logger.info("Recruitment index: %d minimizers over %d loci (device)",
+                index.keys.size, index.n_loci)
+    return index, dev
+
+
+def _recruit_pass(loci: dict, index, dev, items, device, stats=None):
+    """The one recruitment pass over `items` — ReadBlocks for the device,
+    (name, codes1, codes2|None) records for the host engine.  A block is
+    dispatched whole (pairs: to one device, or split over the local
+    cards), up to PIPELINE_DEPTH items in flight while the host reads the
+    next; results are taken in the items' order, so a read's place in each
+    locus's list is that of its item.  Only rows with a hit cost Python
+    work.  Returns ({locus: (read_pairs, names)}, reads/s); `stats` gains
+    "records", the reads (pairs) counted."""
+    import time
+
+    from .ops.recruit import (run_long_async, run_pairs_async,
+                              run_short_async, unpack_decisions)
+    from .parallel.mesh import MeshPairRecruiter, resolve_mesh
+
+    # Several cards: each block of pairs is split over the grid (linear
+    # scaling, no collectives); one device keeps the plain asynchronous path.
+    mesh = resolve_mesh("auto", device)
+    if mesh is not None:
+        dispatch_pairs = MeshPairRecruiter(mesh, dev).run_async
+        logger.info("Recruitment sharded over %d devices", mesh.devices.size)
+    else:
+        def dispatch_pairs(m1, m2):
+            return run_pairs_async(dev, m1, m2, device=device)
+    params = index.params
+
+    def dispatch(b: ReadBlock):
+        if b.m2 is not None:
+            return dispatch_pairs(b.m1[:b.count], b.m2[:b.count])
+        if b.long:
+            return run_long_async(dev, b.m1[:b.count], params.stretch_minims,
+                                  params.stretch_score, device=device)
+        return run_short_async(dev, b.m1[:b.count], device=device)
+
+    order = list(loci)
+    out = {name: ([], []) for name in order}
+    progress = Progress(logger, "reads")
+
+    def scatter(item, res):
+        if res is None:                     # a record for the host engine
+            name, c1, c2 = item
+            with spans.span("recruit.decide"):
+                hit = recruit_any(index, c1, c2)
+            with spans.span("recruit.scatter"):
+                for lx in hit:
+                    out[order[lx]][0].append((c1, c2))
+                    out[order[lx]][1].append(name)
+                progress.add(1, int(bool(hit)))
+            return
+        b = item
+        # Packed [B, G] uint32 bitmaps: only rows with ANY hit are unpacked
+        # (the test runs on the packed words), and only their reads are
+        # copied out of the block.
+        with spans.span("recruit.decide"):
+            packed = res.numpy()[:b.count]
+        with spans.span("recruit.scatter"):
+            live = packed.any(axis=1)
+            if b.keep is not None:
+                live &= b.keep
+            rows = np.nonzero(live)[0]
+            if rows.size:
+                ri, li = np.nonzero(unpack_decisions(packed[rows],
+                                                     len(order)))
+                m2 = b.m2
+                reads = {int(i): (b.m1[i, :b.l1[i]].copy(),
+                                  None if m2 is None
+                                  else m2[i, :b.l2[i]].copy())
+                         for i in rows}
+                for i, lx in zip(rows[ri], li):
+                    out[order[lx]][0].append(reads[int(i)])
+                    out[order[lx]][1].append(b.names[i])
+            progress.add(b.count, int(rows.size))
+
+    pending = []                # [(item, pending decisions | None)]
+    first = None    # dispatch time of the first block; 0 once it is back
+
+    def take():
+        nonlocal first
+        item, res = pending.pop(0)
+        scatter(item, res)
+        if first and res is not None:
+            # The first block's decisions: the time before them is the
+            # kernels' build (first use in a fresh checkout) and the first
+            # roundtrip.  With more to come, the clock restarts for the
+            # steady-state speed (a one- or two-block input keeps it).
+            dt, first = time.perf_counter() - first, 0.0
+            if dt > 5.0:
+                logger.info("Recruitment kernel ready in %.0f s (build; "
+                            "cached for subsequent runs)", dt)
+            if pending:
+                progress.reset_clock()
+
+    while True:
+        with spans.span("recruit.parse"):
+            item = next(items, None)
+        if item is None:
+            break
+        res = None
+        if isinstance(item, ReadBlock):
+            with spans.span("recruit.dispatch"):
+                if first is None:
+                    first = time.perf_counter()
+                res = dispatch(item)
+        pending.append((item, res))
+        while len(pending) > PIPELINE_DEPTH:
+            take()
+    while pending:
+        take()
+    speed = progress.final()
+    spans.count("pairs_parsed", progress.processed)
+    spans.count("pairs_recruited", progress.recruited)
+    if stats is not None:
+        stats["records"] = progress.processed
+    return out, speed
+
+
+def _fill(seqs, L: int):
+    """[len(seqs), L] N-padded codes and int32 lengths of a sequence list,
+    in one masked assignment."""
+    lens = np.fromiter((c.size for c in seqs), np.int32, len(seqs))
+    m = np.full((len(seqs), L), 4, np.int8)
+    m[np.arange(L)[None, :] < lens[:, None]] = np.concatenate(seqs)
+    return m, lens
+
+
+def _record_blocks(records, batch: int, subsample, seed: int):
+    """Groups (name, codes1, codes2|None) records into ReadBlocks by kind,
+    in record order within each: pairs, short single reads, and long single
+    reads by power-of-two length class.  A block goes out when full (long:
+    2^21 codes, at least 8 reads), the rest at the end (pairs, short reads,
+    the long classes by length); a record that no kernel takes goes out as
+    it is.  `subsample` draws one number a record, in record order.
+
+    The widths are the reference package's — short rows a multiple of 64
+    codes, long rows their class — because the width is part of the
+    function: a row pads its read with N, and a minimizer window at a
+    read's end may run into the padding.  With the reference's widths both
+    packages decide alike on every read."""
+    rng = np.random.default_rng(seed)
+
+    def block(buf, L=None, long=False):
+        if L is None:
+            L = max(max(c1.size, 0 if c2 is None else c2.size)
+                    for _, c1, c2 in buf)
+            L = -(-L // 64) * 64
+        m1, l1 = _fill([c1 for _, c1, _ in buf], L)
+        m2, l2 = (None, None) if buf[0][2] is None \
+            else _fill([c2 for _, _, c2 in buf], L)
+        return ReadBlock([rec[0] for rec in buf], m1, l1, len(buf), m2, l2,
+                         long=long)
+
+    pairs, shorts, longs = [], [], {}   # longs: length class -> records
+    for rec in records:
+        name, c1, c2 = rec
+        if subsample is not None and rng.random() >= subsample:
+            continue
+        if c2 is None and c1.size > SHORT_CAP:
+            if c1.size > LONG_CAP:
+                yield rec
+                continue
+            L = 1024
+            while L < c1.size:
+                L *= 2
+            longs.setdefault(L, []).append(rec)
+            if len(longs[L]) >= max((1 << 21) // L, 8):
+                yield block(longs.pop(L), L, long=True)
+        elif c2 is None:
+            shorts.append(rec)
+            if len(shorts) >= batch:
+                yield block(shorts)
+                shorts = []
+        elif c1.size <= SHORT_CAP and c2.size <= SHORT_CAP:
+            pairs.append(rec)
+            if len(pairs) >= batch:
+                yield block(pairs)
+                pairs = []
+        else:
+            yield rec
+    yield from (block(buf) for buf in (pairs, shorts) if buf)
+    yield from (block(longs[L], L, long=True) for L in sorted(longs))
+
+
+def recruit_records(loci: dict, records, recruit_params: RecruitParams,
+                    subsample=None, seed=0, batch=16384,
+                    stats: dict | None = None, device=None):
+    """Recruits the reads of any source — (name, codes1, codes2|None)
+    records, e.g. seq/inputs.py:open_records — against all loci at once
+    (genotype.rs:931-975): pairs of mates up to 500 bases and single reads
+    up to 131,072 bases on the device, in blocks (`_record_blocks`;
+    bit-identical to the host engine on the padded read), the rest on the
+    host engine.  Returns ({locus: (read_pairs, names)}, reads/s); `stats`
+    gains "records", the records streamed after `subsample`.
+    device: None = CUDA (raises without one); "cpu" = plain PyTorch."""
+    device = resolve_device(device)
+    index, dev = _recruit_index(loci, recruit_params)
+    return _recruit_pass(loci, index, dev,
+                         _record_blocks(records, batch, subsample, seed),
+                         device, stats)
+
+
+def recruit_reads_fast(loci: dict, path1, path2,
+                       recruit_params: RecruitParams, subsample=None, seed=0,
+                       batch=32768, max_len=None, stats: dict | None = None,
+                       device=None):
+    """Recruits the pairs of two FASTQ files against all loci at once, in
+    blocks from the native parser (seq/fastx.py:fast_paired_batches): no
+    per-read Python from bytes to per-locus read lists.  Returns ({locus:
+    (read_pairs, names)}, reads/s); `stats` gains "records", the pairs
+    streamed (preproc's seq_info.total_reads, with no second IO pass).
+    `subsample` draws one number a pair, a block at a time.
+
+    max_len=None sizes the block width from the files' leading records
+    (64-bucketed); a longer read appearing mid-stream restarts the pass at
+    the wider bucket — reads are NEVER clipped (the reference recruiter
+    always sees full sequences, recruit.rs:852-932).
+    device: None = CUDA (raises without one); "cpu" = plain PyTorch."""
+    from .seq.fastx import (MaxLenExceeded, _bucket_len, fast_paired_batches,
+                            probe_fastq_max_len)
+    from .utils.io import Prefetch
+
+    device = resolve_device(device)
+    index, dev = _recruit_index(loci, recruit_params)
+    if max_len is None:
+        with spans.span("recruit.parse"):
+            max_len = _bucket_len(probe_fastq_max_len((path1, path2)))
+    while True:
+        rng = np.random.default_rng(seed)
+        try:
+            # The mates are inflated and parsed on a thread each and paired
+            # into blocks on a third (zlib and the parser release the GIL):
+            # block N+1 is read while this thread scatters N-1 and feeds
+            # the device with N.  Leaving the `with` stops and joins all
+            # three.
+            with Prefetch(fast_paired_batches(
+                    path1, path2, batch=batch, max_len=max_len,
+                    span_parent=spans.current()), depth=2) as parsed:
+                blocks = (ReadBlock(names, m1, l1, n, m2, l2,
+                                    keep=None if subsample is None
+                                    else rng.random(n) < subsample)
+                          for names, m1, l1, m2, l2, n in parsed)
+                return _recruit_pass(loci, index, dev, blocks, device, stats)
+        except MaxLenExceeded as exc:
+            new_len = _bucket_len(exc.max_seen)
+            logger.warning(
+                "Read of %d bp exceeds the %d bp batch width; restarting "
+                "recruitment at width %d (no reads are ever clipped)",
+                exc.max_seen, max_len, new_len)
+            max_len = new_len
 
 
 def genotype_locus(locus: LocusData, read_pairs, names, bg: BgDistr,

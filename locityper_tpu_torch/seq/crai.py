@@ -107,7 +107,7 @@ def fetch(cram_path, idx: CraiIndex, rid: int, start: int, end: int,
 
     cram: an already-open CramFile to reuse across calls — opening one
     re-parses the reference FASTA, so multi-region callers MUST share one
-    (commands/genotype.py:_crai_records)."""
+    (seq/inputs.py:crai_records)."""
     cf = cram if cram is not None else CramFile(cram_path, reference)
     try:
         for off in idx.container_offsets(rid, start, end):

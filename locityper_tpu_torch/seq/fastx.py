@@ -410,20 +410,3 @@ def _pack_pairs(names, r1s, r2s, max_len):
         m2[i, :L2] = b[:L2]
         l1[i], l2[i] = L1, L2
     return names, m1, l1, m2, l2, n
-
-
-def batchify(reads: list[np.ndarray], batch: int, max_len: int,
-             pad_to_batch: bool = True):
-    """Packs variable-length code arrays into dense [B, max_len] int8 batches
-    (pad = N code) plus an int32 length vector — the device-kernel input
-    layout (design: SURVEY.md §7 'irregular data → dense tensors')."""
-    for i in range(0, len(reads), batch):
-        chunk = reads[i:i + batch]
-        b = len(chunk) if not pad_to_batch else batch
-        mat = np.full((b, max_len), dna.N_CODE, dtype=np.int8)
-        lens = np.zeros(b, dtype=np.int32)
-        for j, r in enumerate(chunk):
-            L = min(r.size, max_len)
-            mat[j, :L] = r[:L]
-            lens[j] = L
-        yield mat, lens, len(chunk)

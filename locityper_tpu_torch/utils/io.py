@@ -95,14 +95,9 @@ class Prefetch:
 
 
 def smart_open(path):
-    """Opens a text file for reading; transparently handles .gz (by magic bytes)."""
-    path = Path(path)
-    f = open(path, "rb")
-    magic = f.read(2)
-    f.seek(0)
-    if magic == b"\x1f\x8b":
-        return io.TextIOWrapper(gzip.GzipFile(fileobj=f, mode="rb"))
-    return io.TextIOWrapper(f)
+    """Opens a text file for reading; transparently handles .gz (by magic
+    bytes).  Closing it closes the file (`smart_open_bytes`)."""
+    return io.TextIOWrapper(smart_open_bytes(path))
 
 
 class _ClosingGzipFile(gzip.GzipFile):

@@ -10,12 +10,13 @@ recruitment specificity and the depth model).
   the matched per-GC-bin depth model (the 101 GC bins carry the call).
 
 Each sample is drawn exactly as the JAX test draws it.  Recruitment is
-integers only: the port's device path (`commands.genotype.recruit_reads` on
+integers only: the port's device path (`pipeline.recruit_records` on
 `device="cpu"`, the plain version of its kernel) must keep, name by name,
 the reads of the JAX package's device path and of the port's per-read
 oracle on reads padded as a device row pads them, and the two host engines
-(`use_device=False`) the same reads as each other (`recruit`).  Calls must
-equal the truth and the JAX package's.  Both packages run on the first
+(the JAX package's `recruit_reads` without its device, the port's
+`pipeline.recruit_reads`) the same reads as each other (`recruit`).  Calls
+must equal the truth and the JAX package's.  Both packages run on the first
 seed of each case, once, in a module-scoped fixture; the second seed runs
 through the port alone (the JAX side of it is tests/test_adversarial.py).
 """
@@ -33,7 +34,6 @@ from locityper_tpu.seq.recruit import RecruitParams as JRecruitParams
 from locityper_tpu.solvers.solve import Scheme as JScheme
 from locityper_tpu_torch import convert
 from locityper_tpu_torch import pipeline as tpipeline
-from locityper_tpu_torch.commands.genotype import recruit_reads
 from locityper_tpu_torch.pipeline import genotype_locus
 from locityper_tpu_torch.seq.recruit import RecruitParams
 from locityper_tpu_torch.solvers.solve import Scheme
@@ -113,28 +113,25 @@ CASES = {"twins": twins, "paralog": paralog, "gc": gc_biased}
 
 def recruit(case):
     """Both packages' recruitment of one sample.  The device paths (the
-    JAX package's `use_device=True` and the port's on `device="cpu"`) keep
-    the same reads, name by name and in order, and equal the port's
-    per-read oracle on padded reads; the host engines (`use_device=False`)
-    keep the same reads as each other.  The two kinds differ by design
-    (ROADMAP Queue C item 10): a device row pads the read with N, which
-    moves the windows at its end, and on the paralog's borderline reads
-    that moves dozens of pairs (50 of 572 at 97 % identity), in both
-    packages alike.  Returns the port's device path's (read_pairs, names)
-    and the count that the padding moved."""
+    JAX package's and the port's on `device="cpu"`) keep the same reads,
+    name by name and in order, and equal the port's per-read oracle on
+    padded reads; the host engines keep the same reads as each other.
+    The two kinds differ by design (ROADMAP Queue C item 10): a device
+    row pads the read with N, which moves the windows at its end, and on
+    the paralog's borderline reads that moves dozens of pairs (50 of 572
+    at 97 % identity), in both packages alike.  Returns the port's device
+    path's (read_pairs, names) and the count that the padding moved."""
     name = case["locus"].name
     j_data = {name: case["data"]}
     data = {name: convert.from_reference(case["data"])}
     j_rp, rp = JRecruitParams(match_frac=MATCH_FRAC), \
         RecruitParams(match_frac=MATCH_FRAC)
-    j_dev, _ = j_recruit_reads(j_data, iter(case["reads"]), j_rp, batch=512,
-                               use_device=True)
+    j_dev, _ = j_recruit_reads(j_data, iter(case["reads"]), j_rp, batch=512)
     j_host, _ = j_recruit_reads(j_data, iter(case["reads"]), j_rp,
                                 batch=512, use_device=False)
-    rec, _ = recruit_reads(data, iter(case["reads"]), rp, batch=512,
-                           device="cpu")
-    host, _ = recruit_reads(data, iter(case["reads"]), rp, batch=512,
-                            use_device=False)
+    rec, _ = tpipeline.recruit_records(data, iter(case["reads"]), rp,
+                                       batch=512, device="cpu")
+    host = tpipeline.recruit_reads(data, iter(case["reads"]), rp)
     oracle = tpipeline.recruit_reads(data, iter(case["reads"]), rp, pad=PAD)
     pairs, names = rec[name]
     assert names == j_dev[name][1] == oracle[name][1]

@@ -148,14 +148,14 @@ def test_a_too_wide_read_on_a_mate_thread_restarts_recruitment(
         raised_on.append(threading.current_thread().name)
         init(self, max_seen)
 
-    fast_pass = TG._recruit_fast_pass
+    batches = fastx.fast_paired_batches
 
-    def spy_pass(*args, **kwargs):
-        widths.append(args[8])
-        return fast_pass(*args, **kwargs)
+    def spy_batches(*args, **kwargs):
+        widths.append(kwargs["max_len"])
+        return batches(*args, **kwargs)
 
     monkeypatch.setattr(fastx.MaxLenExceeded, "__init__", spy_init)
-    monkeypatch.setattr(TG, "_recruit_fast_pass", spy_pass)
+    monkeypatch.setattr(fastx, "fast_paired_batches", spy_batches)
     rp = RecruitParams(match_frac=0.6)
     restarted, _ = TG.recruit_reads_fast(loci, *paths, rp, batch=32,
                                          max_len=192, device="cpu")

@@ -38,6 +38,7 @@ from locityper_tpu_torch import cli as tcli
 from locityper_tpu_torch import pipeline as tpipeline
 from locityper_tpu_torch.commands import genotype as TG
 from locityper_tpu_torch.seq import bam as tbam
+from locityper_tpu_torch.seq import dna
 from locityper_tpu_torch.seq.recruit import RecruitParams
 
 sys.path.insert(0, str(Path(__file__).parent))
@@ -200,7 +201,7 @@ def test_second_run_resumed_from_the_checkpoint(world, tmp_path, monkeypatch):
         raise AssertionError("recruitment ran despite the checkpoint")
 
     monkeypatch.setattr(TG, "recruit_reads_fast", no_recruit)
-    monkeypatch.setattr(TG, "recruit_reads", no_recruit)
+    monkeypatch.setattr(TG, "recruit_records", no_recruit)
     assert torch_cli("genotype", *args) == 0
     for name in LOCI:
         res = read_json(out / "loci" / name / "res.json.gz")
@@ -572,56 +573,85 @@ def assert_same_recruits(a, b, ordered=True):
 PAD = 9     # minimizer_w - 1: what a device row's padding adds to a read
 
 
-def test_recruit_entries_equal_the_host_oracle(world):
-    """`recruit_reads_fast` (FASTQ, native parser, device batches) and
-    `recruit_reads` (iterator, device pair batches) equal
+#: Cases of the two recruitment entries on the same pairs: the fixture that
+#: holds them, `recruit_reads_fast`'s options, the block size of both.
+ENTRY_CASES = {
+    "plain": ("world", {}, 4096),
+    "subsample": ("world", dict(subsample=0.5, seed=3), 4096),
+    "300bp": ("world300", {}, 64),
+    # A too-small starting width restarts the FASTQ pass at the wider one.
+    "300bp-restart": ("world300", dict(max_len=192), 64),
+}
+
+
+@pytest.mark.parametrize("case", list(ENTRY_CASES))
+def test_recruit_entries_equal_the_host_oracle(request, case):
+    """`recruit_reads_fast` (two FASTQ files, native parser, blocks) and
+    `recruit_records` (the same pairs record by record) give identical
+    per-locus lists, order included.  Without subsampling both equal
     `pipeline.recruit_reads`, the per-read host engine, on reads padded as
-    a device row pads them; `use_device=False` is the unpadded host engine.
-    The padding moves one pair of 3,574 here (in the reference package
-    too): a window at the read's end runs into the N codes behind it."""
-    loci = load_loci(world)
+    a device row pads them; the padding moves one pair of 3,574 in the
+    two-locus world (in the reference package too): a window at the read's
+    end runs into the N codes behind it.  Both entries draw a subsample
+    one number a pair in input order, so they keep the same pairs; the
+    draw is reproducible and keeps roughly the asked share.  No read is
+    ever clipped: the restart recruits what the right width does."""
+    fixture, kw, batch = ENTRY_CASES[case]
+    w = request.getfixturevalue(fixture)
+    loci = load_loci(w) if fixture == "world" else w.loci
     rp = RecruitParams(match_frac=0.6)
-    oracle = tpipeline.recruit_reads(loci, iter(world.reads), rp, pad=PAD)
-    assert all(len(oracle[n][1]) > 300 for n in LOCI)
-    unpadded = tpipeline.recruit_reads(loci, iter(world.reads), rp)
-    for n in LOCI:
-        assert len(set(unpadded[n][1]) ^ set(oracle[n][1])) <= 2
-    fast, speed = TG.recruit_reads_fast(loci, world.r1, world.r2, rp,
-                                        batch=4096, device="cpu")
-    assert speed > 0
-    assert_same_recruits(fast, oracle)
-    it, _ = TG.recruit_reads(loci, iter(world.reads), rp, batch=3000,
-                             device="cpu")
-    assert_same_recruits(it, oracle)
-    host, _ = TG.recruit_reads(loci, iter(world.reads), rp, use_device=False)
-    assert_same_recruits(host, unpadded)
-    # Subsampling draws per batch in one entry and per read in the other:
-    # each is reproducible, and keeps roughly the asked share.
     stats = {}
-    sub1, _ = TG.recruit_reads_fast(loci, world.r1, world.r2, rp, batch=4096,
-                                    subsample=0.5, seed=3, stats=stats,
-                                    device="cpu")
-    sub2, _ = TG.recruit_reads_fast(loci, world.r1, world.r2, rp, batch=4096,
-                                    subsample=0.5, seed=3, device="cpu")
-    assert_same_recruits(sub1, sub2)
-    assert stats["records"] == len(world.reads)
-    share = len(sub1["GENE1"][1]) / len(oracle["GENE1"][1])
-    assert 0.35 < share < 0.65
-    assert set(sub1["GENE1"][1]) <= set(oracle["GENE1"][1])
+    fast, speed = TG.recruit_reads_fast(loci, w.r1, w.r2, rp, batch=batch,
+                                        stats=stats, device="cpu", **kw)
+    assert speed > 0 and stats["records"] == len(w.reads)
+    per_record, _ = tpipeline.recruit_records(
+        loci, iter(w.reads), rp, batch=batch, device="cpu",
+        **{k: v for k, v in kw.items() if k != "max_len"})
+    assert_same_recruits(per_record, fast)
+    oracle = tpipeline.recruit_reads(loci, iter(w.reads), rp, pad=PAD)
+    if "subsample" not in kw:
+        assert_same_recruits(fast, oracle)
+        assert all(len(names) > 10 for _, names in oracle.values())
+    else:
+        again, _ = TG.recruit_reads_fast(loci, w.r1, w.r2, rp, batch=batch,
+                                         device="cpu", **kw)
+        assert_same_recruits(again, fast)
+        share = len(fast["GENE1"][1]) / len(oracle["GENE1"][1])
+        assert 0.35 < share < 0.65
+        assert set(fast["GENE1"][1]) <= set(oracle["GENE1"][1])
+    if case == "plain":
+        assert all(len(oracle[n][1]) > 300 for n in LOCI)
+        unpadded = tpipeline.recruit_reads(loci, iter(w.reads), rp)
+        for n in LOCI:
+            assert len(set(unpadded[n][1]) ^ set(oracle[n][1])) <= 2
 
 
 def test_single_and_mixed_reads_equal_the_host_oracle(world):
-    """Short single reads go through device batches of their own; long
-    pairs stay on the host engine; flushes of uneven sizes."""
+    """Short single reads go through device batches of their own; pairs of
+    mates over 500 bases, mixed into the stream, stay on the host engine,
+    which sees them unpadded; flushes of uneven sizes."""
     loci = load_loci(world)
     rp = RecruitParams(match_frac=0.6)
     reads = [(n, a, None) for n, a, _ in world.reads[:1800]]
     reads += world.reads[1800:]
+    hap = loci["GENE1"].contig_set.seqs[0]
+    long_pairs = [(f"long{i}", hap[s:s + 600].copy(),
+                   dna.revcomp(hap[s + 300:s + 900]))
+                  for i, s in enumerate(range(0, 3000, 150))]
+    mixed = list(reads)
+    for i, rec in enumerate(long_pairs):
+        mixed.insert(150 * i + 7, rec)
     oracle = tpipeline.recruit_reads(loci, iter(reads), rp, pad=PAD)
-    got, _ = TG.recruit_reads(loci, iter(reads), rp, batch=700, device="cpu")
+    host = tpipeline.recruit_reads(loci, iter(long_pairs), rp)
+    for name in LOCI:
+        for want, extra in zip(oracle[name], host[name]):
+            want += extra
+    got, _ = tpipeline.recruit_records(loci, iter(mixed), rp, batch=700,
+                                       device="cpu")
     assert_same_recruits(got, oracle, ordered=False)
     assert any(p[1] is None for p in got["GENE1"][0])
     assert any(p[1] is not None for p in got["GENE1"][0])
+    assert sum(n.startswith("long") for n in got["GENE1"][1]) > 10
 
 
 @pytest.fixture(scope="module")
@@ -658,22 +688,6 @@ def world300(tmp_path_factory):
             fastx.write_fastq(f2, fastx.Read(n, b))
     loci = {"G": SimpleNamespace(contig_set=cset, kmer_counts=kc)}
     return SimpleNamespace(loci=loci, r1=r1, r2=r2, reads=reads)
-
-
-def test_fast_path_at_300bp_and_midstream_restart(world300):
-    """The batch width follows the files; a too-small starting width
-    restarts the pass at the wider one, and no read is ever clipped."""
-    w = world300
-    rp = RecruitParams(match_frac=0.6)
-    oracle = tpipeline.recruit_reads(w.loci, iter(w.reads), rp, pad=PAD)
-    assert len(oracle["G"][1]) > 10
-    assert max(a.size for _, a, _ in w.reads) >= 300
-    auto, _ = TG.recruit_reads_fast(w.loci, w.r1, w.r2, rp, batch=64,
-                                    device="cpu")
-    assert_same_recruits(auto, oracle)
-    restarted, _ = TG.recruit_reads_fast(w.loci, w.r1, w.r2, rp, batch=64,
-                                         max_len=192, device="cpu")
-    assert_same_recruits(restarted, oracle)
 
 
 # --- the HiFi flow ------------------------------------------------------------
@@ -802,7 +816,7 @@ def test_prune_and_add_subcommands_equal_reference(world, tmp_path):
 
 def test_index_subcommand_and_bam_input(world, tmp_path):
     """`index` writes the same .bai; a BAM of the sample's first pairs goes
-    through `genotype`'s iterator entry (`recruit_reads`)."""
+    through `genotype`'s per-record entry (`recruit_records`)."""
     reads = world.reads[:3000]
     for path in (tmp_path / "j.bam", tmp_path / "t.bam"):
         with jbam.BamWriter(path, ["chr1"], [300_000]) as w:

@@ -217,11 +217,11 @@ def test_default_device_is_cuda_and_raises_without_one():
         genotype_panel([], None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         solve_panel([], None, None, Scheme.default(), 1)
-    from locityper_tpu_torch.commands.genotype import (recruit_reads,
-                                                       recruit_reads_fast)
+    from locityper_tpu_torch.pipeline import (recruit_reads_fast,
+                                              recruit_records)
     from locityper_tpu_torch.seq.recruit import RecruitParams
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        recruit_reads({}, iter(()), RecruitParams())
+        recruit_records({}, iter(()), RecruitParams())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         recruit_reads_fast({}, "a.fq", "b.fq", RecruitParams())
 
