@@ -172,6 +172,12 @@ reference-default scheme) on simulated samples whose truth is known:
        the annealer on that shard's rows with that shard's seed, and
        `parallel.mesh.full_step` (the multi-device dry run) equal one
        device.
+  (k1-gather) after the samples, the largest job table a main path handed
+       `dispatch_align_batches` (one group's loci, rows of at most
+       LONG_ROWS): staged on the card and gathered there in one batch, its
+       reads, lengths and windows must equal the host assembly that the
+       table replaced (`extract_windows`, a reverse-complement matrix) byte
+       for byte, and K1's seven outputs on both must be equal.
 
 Before the samples, the sequential engine runs on the card against the CPU
 on tests/test_ilp.py's problems: its greedy must give equal assignments and
@@ -1318,7 +1324,7 @@ class MeshCapture:
         self._stage = M.sharded_stage_solver
 
         def dispatch(*args, **kw):
-            self.jobs.append(args[:5])
+            self.jobs.append(args[:3])
             return self._dispatch(*args, **kw)
 
         def stage(mesh, run_solver, seed, gts):
@@ -1333,6 +1339,68 @@ class MeshCapture:
     def __exit__(self, *exc):
         LC.dispatch_align_batches = self._dispatch
         M.sharded_stage_solver = self._stage
+
+
+def host_k1_inputs(jobs, band):
+    """K1's inputs of a job table as the host assembled them before the
+    table: each job's read picked from a forward and a reverse-complement
+    [M, L] matrix, its window cut from its haplotype by `extract_windows`.
+    Returns (reads [J, L], lens [J], wins [J, L + band]) numpy arrays."""
+    L, W = jobs.L, jobs.L + band
+    reads, lens, wins = [], [], []
+    for fwd, mlen, haps, cols in zip(jobs.mates, jobs.mate_lens, jobs.haps,
+                                     jobs.cols):
+        jm, jh, jo, ws = cols.astype(np.int64)
+        comp = np.where(fwd < 4, 3 - fwd, 4).astype(np.int8)
+        src = mlen[:, None].astype(np.int64) - 1 - np.arange(L)[None, :]
+        rc = np.where(src >= 0, comp[np.arange(fwd.shape[0])[:, None],
+                                     np.clip(src, 0, L - 1)],
+                      np.int8(4)).astype(np.int8)
+        reads.append(np.where(jo[:, None] == 1, rc[jm], fwd[jm]))
+        lens.append(mlen[jm])
+        w = np.full((jm.size, W), 4, np.int8)
+        for hp in np.unique(jh):
+            rows = np.nonzero(jh == hp)[0]
+            w[rows] = A.extract_windows(haps[hp], ws[rows], W)
+        wins.append(w)
+    return tuple(np.concatenate(x) for x in (reads, lens, wins))
+
+
+def check_k1_gather(group):
+    """(k1-gather): the largest job table a main path gave K1 (one group's
+    loci), staged on the card and gathered there in one batch, against the
+    host assembly it replaced: reads, lengths and windows equal byte for
+    byte, and K1's seven outputs on both equal."""
+    check(group is not None, "(k1-gather): no alignment dispatch recorded")
+    jobs, sv, band, path = group
+    what = f"(k1-gather) ({path})'s largest group, {len(jobs)} jobs"
+    t0 = time.perf_counter()
+    want = host_k1_inputs(jobs, band)
+    t1 = time.perf_counter()
+    staged = jobs.stage(sv, band, torch.device("cuda", 0))
+    got = staged.gather(0, len(jobs))
+    sync()
+    t2 = time.perf_counter()
+    for name, g, w in zip(("reads", "lens", "wins"), got, want):
+        check(g.is_cuda and g.dtype == torch.from_numpy(w).dtype
+              and tuple(g.shape) == w.shape
+              and torch.equal(g.cpu(), torch.from_numpy(w)),
+              f"{what}: the gathered {name} differ from the host assembly")
+    svec = torch.from_numpy(np.asarray(sv, np.float32)).cuda()
+    out = A.align_banded(*got, svec, band)
+    ref = A.align_banded(*(torch.from_numpy(x).cuda() for x in want), svec,
+                         band)
+    keys = [k for k in A.ALIGN_RESULT_KEYS if k != "valid"]
+    for k in keys:
+        check(torch.equal(out[k], ref[k]),
+              f"{what}: K1's {k} differs on the gathered inputs")
+    n_bytes = sum(x.nbytes for x in want)
+    print(f"{what} x L {jobs.L}, band {band}, {len(jobs.mates)} loci: "
+          f"reads, lens and wins gathered on the card equal the host "
+          f"assembly byte for byte ({n_bytes:,} bytes; host assembly "
+          f"{t1 - t0:.3f} s, staging {jobs.staged_nbytes(band):,} bytes and "
+          f"gather {t2 - t1:.3f} s); K1's {len(keys)} outputs equal",
+          flush=True)
 
 
 def synthetic_problem(n_reads, n_haps=4, hap_len=2000, kh=4, seed=0):
@@ -1375,14 +1443,14 @@ def check_b_mesh(what, grid, cap, built, device="cuda"):
     t0 = time.perf_counter()
     check(cap.jobs, f"{what}: no alignment dispatch")
     n_jobs = 0
-    for reads, lens, wins, sv, band in cap.jobs:
-        got = M.sharded_align(grid, reads, lens, wins, sv, band)
+    for jobs, sv, band in cap.jobs:
+        got = M.sharded_align(grid, jobs, sv, band)
         want = LC.collect_align_batches(LC.dispatch_align_batches(
-            reads, lens, wins, sv, band, device=device))
+            jobs, sv, band, device=device))
         for k in want:
             check(np.array_equal(got[k], want[k]),
                   f"{what}: sharded_align {k} differs from one device")
-        n_jobs += reads.shape[0]
+        n_jobs += len(jobs)
     t1 = time.perf_counter()
 
     all_alns = built[0][0]
@@ -2885,6 +2953,8 @@ class Recorder:
                                         # other than 15, entry_k<k>
         self.n_front_k = {}             # entry_k<k> -> launches
         self.widest = {}                # (path, kernel) -> widest launch
+        self.group = None               # (jobs, score_vec, band, path) of
+                                        # the most jobs a dispatch gave K1
         self.greedy_iters = {}          # path -> [iterations of its chains]
         self.recruited = {}             # genotype -o name -> {locus: names}
         self.saved_at = {}              # genotype -o name -> first save
@@ -2893,6 +2963,7 @@ class Recorder:
         self._anneal_chains = SC.anneal_chains
         self._minimizer_front = R.minimizer_front
         self._greedy_chain = SQ._greedy_chain
+        self._dispatch_align = LC.dispatch_align_batches
 
     def _keep_widest(self, kernel, reads, args):
         key = (self.path if self.phase is None
@@ -2951,6 +3022,12 @@ class Recorder:
                 self._keep_widest(entry, reads, (reads, k, w, S))
             return self._minimizer_front(reads, k, w, S)
 
+        def dispatch_align(jobs, score_vec, band, *args, **kw):
+            if jobs.L <= LONG_ROWS and (self.group is None
+                                        or len(jobs) > len(self.group[0])):
+                self.group = (jobs, score_vec, band, self.path)
+            return self._dispatch_align(jobs, score_vec, band, *args, **kw)
+
         def greedy_chain(*args, **kw):
             out = self._greedy_chain(*args, **kw)
             self.greedy_iters.setdefault(self.path, []).append(out[2])
@@ -2966,6 +3043,7 @@ class Recorder:
         A.align_banded, SC.anneal_chains = align_banded, anneal_chains
         R.minimizer_front, SQ._greedy_chain = minimizer_front, greedy_chain
         G._save_recruited = save_recruited
+        LC.dispatch_align_batches = dispatch_align
         return self
 
     def __exit__(self, *exc):
@@ -2974,6 +3052,7 @@ class Recorder:
         R.minimizer_front = self._minimizer_front
         SQ._greedy_chain = self._greedy_chain
         G._save_recruited = self._save_recruited
+        LC.dispatch_align_batches = self._dispatch_align
 
 
 FRONT = ("minimizer_front_compact", "minimizer_front_full")
@@ -3393,6 +3472,7 @@ def main():
 
     # Outside the recorder: these launches compare, they are no main path.
     check_b_mesh("(b-mesh)", grid, b_mesh["cap"], b_mesh["built"])
+    check_k1_gather(rec.group)
     reads, lens, wins, svec, band = rec.align
     k1 = compare_align(reads, lens, wins, svec, band, "main-path launch")
     print(f"main-path launch of align_banded {k1['shape']} [N, L, band]: "

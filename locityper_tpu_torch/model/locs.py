@@ -330,51 +330,192 @@ class MateAlnTable:
         return (self.start + self.end) // 2
 
 
-def _padded_mate_matrices(mates, L):
-    """[M, L] forward and reverse-complement code matrices (pad code 4),
-    built with flat-mask assignment + a vectorized reverse gather — no
-    per-read Python."""
+def _mate_matrix(mates, L):
+    """[M, L] forward code matrix (pad code 4) and [M] int32 lengths,
+    built with one flat-mask assignment — no per-read Python."""
     M = len(mates)
-    lens = np.fromiter((m.size for m in mates), np.int64, M)
+    lens = np.fromiter((m.size for m in mates), np.int32, M)
     fwd = np.full((M, L), 4, np.int8)
     mask = np.arange(L)[None, :] < lens[:, None]
     fwd[mask] = np.concatenate(mates) if M else np.empty(0, np.int8)
-    comp = np.where(fwd < 4, 3 - fwd, 4).astype(np.int8)
-    j = np.arange(L)[None, :]
-    src = lens[:, None] - 1 - j
-    rc = np.where(src >= 0,
-                  comp[np.arange(M)[:, None], np.clip(src, 0, max(L - 1, 0))],
-                  np.int8(4))
-    return fwd, rc.astype(np.int8), lens
+    return fwd, lens
+
+
+#: Byte alignment of each section of a staged job table.
+_STAGE_ALIGN = 16
+
+
+@dataclass
+class AlignJobs:
+    """K1's inputs as a job table, not job arrays: per locus, its mates as
+    one forward [M, L] int8 matrix (pad code 4) with their int32 lengths,
+    its haplotypes, and four int32 a job, [4, J]: mate, haplotype, strand
+    (1 = the read's reverse complement) and window start (`diag - band //
+    2`), indices local to the locus.  `join` makes one table of a group's
+    loci without copying a byte; `stage` uploads it, and the device forms
+    each batch's reads [n, L] and windows [n, L + band] from it
+    (`StagedJobs.gather`).  No [J, L] or [J, L + band] array is built on
+    the host."""
+    L: int
+    mates: list         # per locus [M, L] int8
+    mate_lens: list     # per locus [M] int32
+    haps: list          # per locus: its haplotypes' int8 code arrays
+    cols: list          # per locus [4, J] int32: mate, hap, strand, ws
+
+    def __len__(self) -> int:
+        return sum(c.shape[1] for c in self.cols)
+
+    @classmethod
+    def join(cls, tables) -> "AlignJobs":
+        """One table over a group of loci padded to the same L."""
+        tables = list(tables)
+        return cls(tables[0].L, *(sum((getattr(t, f) for t in tables), [])
+                                  for f in ("mates", "mate_lens", "haps",
+                                            "cols")))
+
+    def job_lens(self) -> np.ndarray:
+        """[J] int32 read length of every job."""
+        return np.concatenate([ml[c[0]] for ml, c in
+                               zip(self.mate_lens, self.cols)])
+
+    def _layout(self, band: int):
+        """Sizes of the joined table and the byte offset of each section
+        of its staging buffer: score vector, mate lengths, job columns,
+        haplotype offsets and lengths, mates, padded haplotypes."""
+        W = self.L + band
+        M = sum(m.shape[0] for m in self.mates)
+        hap_len = np.fromiter((s.size for hs in self.haps for s in hs),
+                              np.int64)
+        # Every haplotype has W pad codes before and after it.
+        hap_off = W + np.cumsum(hap_len + W) - (hap_len + W)
+        F = W * (hap_len.size + 1) + int(hap_len.sum())
+        offs = [0]
+        for n in (4 * 5, 4 * M, 4 * 4 * len(self), 4 * hap_len.size,
+                  4 * hap_len.size, M * self.L, F):
+            offs.append(offs[-1] + -(-n // _STAGE_ALIGN) * _STAGE_ALIGN)
+        return W, M, hap_len, hap_off, F, offs
+
+    def staged_nbytes(self, band: int) -> int:
+        """Bytes that `stage` writes on the host and uploads."""
+        return self._layout(band)[-1][-1]
+
+    def stage(self, score_vec, band: int, dev) -> "StagedJobs":
+        """Writes the table into one staging buffer (pinned on a card) and
+        uploads it to `dev` with `non_blocking=True`: the score vector, the
+        mates [M, L] and their lengths, the haplotypes as one flat int8
+        buffer with W = L + band pad codes before and after each, and the
+        job columns, each locus's mate and haplotype indices offset into
+        the group's.  Counts its bytes in `k1_staged_bytes`."""
+        W, M, hap_len, hap_off, F, offs = self._layout(band)
+        J, L = len(self), self.L
+        buf = torch.empty(offs[-1], dtype=torch.uint8,
+                          pin_memory=dev.type == "cuda")
+        host = buf.numpy()
+
+        def section(i, dtype):
+            return host[offs[i]:offs[i + 1]].view(dtype)
+
+        section(0, np.float32)[:5] = np.asarray(score_vec, np.float32)
+        lens, cols = section(1, np.int32), section(2, np.int32)
+        cols = cols[:4 * J].reshape(4, J)
+        section(3, np.int32)[:hap_len.size] = hap_off
+        section(4, np.int32)[:hap_len.size] = hap_len
+        mates = section(5, np.int8)[:M * L].reshape(M, L)
+        flat = section(6, np.int8)
+        flat.fill(4)
+        m0 = j0 = h0 = 0
+        for mat, ml, hs, c in zip(self.mates, self.mate_lens, self.haps,
+                                  self.cols):
+            n = c.shape[1]
+            np.add(c[0], m0, out=cols[0, j0:j0 + n])
+            np.add(c[1], h0, out=cols[1, j0:j0 + n])
+            cols[2:, j0:j0 + n] = c[2:]
+            mates[m0:m0 + mat.shape[0]] = mat
+            lens[m0:m0 + mat.shape[0]] = ml
+            for h, seq in enumerate(hs, h0):
+                flat[hap_off[h]:hap_off[h] + seq.size] = seq
+            m0, j0, h0 = m0 + mat.shape[0], j0 + n, h0 + len(hs)
+        spans.count("k1_staged_bytes", buf.numel())
+
+        d = buf.to(dev, non_blocking=True)
+
+        def dev_section(i, dtype, n):
+            return d[offs[i]:offs[i] + n * dtype.itemsize].view(dtype)
+
+        return StagedJobs(
+            L, band, dev_section(0, torch.float32, 5),
+            dev_section(1, torch.int32, M),
+            dev_section(2, torch.int32, 4 * J).view(4, J),
+            dev_section(3, torch.int32, hap_len.size),
+            dev_section(4, torch.int32, hap_len.size),
+            dev_section(5, torch.int8, M * L).view(M, L),
+            dev_section(6, torch.int8, F))
+
+
+class StagedJobs:
+    """A job table on its device, and each batch's K1 inputs gathered
+    there.  Once a group: the reads of both strands as one [2 M, L] stack
+    (forward rows, then their reverse complements, pad 4 after each read's
+    length), one row of it and one window start a job.  A window is a row
+    of the padded haplotypes' `unfold(0, W, 1)` view, its start clamped to
+    [-W, haplotype length], where the window is wholly padding — the bytes
+    of `ops/align.py:extract_windows`."""
+
+    def __init__(self, L, band, score_vec, mate_lens, cols, hap_off, hap_len,
+                 fwd, flat):
+        W = L + band
+        self.band, self.score_vec = band, score_vec
+        M = fwd.shape[0]
+        comp = torch.where(fwd < 4, 3 - fwd, 4)
+        # Reverse complement of row m: its flipped row, read from
+        # L - len[m] on, with pad codes behind it.
+        ext = torch.cat([comp.flip(1), torch.full_like(comp, 4)], 1)
+        rc = ext.unfold(1, L, 1)[torch.arange(M, device=fwd.device),
+                                 L - mate_lens.long()]
+        self.reads = torch.cat([fwd, rc])
+        mate, hap = cols[0].long(), cols[1].long()
+        self.read_row = cols[2].long() * M + mate
+        ws = torch.minimum(cols[3].clamp(min=-W), hap_len[hap])
+        self.win_row = hap_off[hap].long() + ws.long()
+        self.wins = flat.unfold(0, W, 1)
+        self.lens = mate_lens[mate]
+
+    def gather(self, lo: int, hi: int, n: int | None = None):
+        """(reads [n, L] int8, lens [n] int32, wins [n, L + band] int8) of
+        jobs lo..hi, padded to `n` rows with N reads of length 0 in N
+        windows (a shard's padding)."""
+        reads = self.reads.index_select(0, self.read_row[lo:hi])
+        wins = self.wins.index_select(0, self.win_row[lo:hi])
+        lens = self.lens[lo:hi]
+        pad = (hi - lo if n is None else n) - (hi - lo)
+        if pad:
+            reads = torch.cat([reads, reads.new_full((pad, reads.shape[1]),
+                                                     4)])
+            wins = torch.cat([wins, wins.new_full((pad, wins.shape[1]), 4)])
+            lens = torch.cat([lens, lens.new_zeros(pad)])
+        return reads, lens, wins
 
 
 def _prepare_align_jobs(mates, jobs, contig_set, band, L: int | None = None):
-    """Assembles the UNPADDED job arrays for `_align_candidates`:
-    (reads [J, L], lens [J], wins [J, L+band], meta).  `L` may be forced
-    larger (multi-locus batching pads every locus to the panel bucket —
-    safe: the kernel never reads past lens[i] + band)."""
+    """The job table of one locus (`AlignJobs`) and the job meta of
+    `_finish_align`: (mate, hap, orient, window start), int64.  `L` may be
+    forced larger (multi-locus batching pads every locus to the panel
+    bucket — safe: the kernel never reads past lens[i] + band)."""
     jm, jh, jo, jd = (np.asarray(a, np.int64) for a in jobs)
     max_read = max(m.size for m in mates)
     L = L or (-(-max_read // 64) * 64)
-    fwd_mat, rc_mat, all_lens = _padded_mate_matrices(mates, L)
-    W = L + band
+    fwd, lens = _mate_matrix(mates, L)
     all_ws = jd - band // 2
-    # Window gather grouped per haplotype (extract_windows is vectorized).
-    all_wins = np.full((jm.size, W), 4, np.int8)
-    for hp in np.unique(jh):
-        rows = np.nonzero(jh == hp)[0]
-        all_wins[rows] = A.extract_windows(contig_set.seqs[hp], all_ws[rows], W)
-    reads = np.where(jo[:, None] == 1, rc_mat[jm], fwd_mat[jm])
-    lens = all_lens[jm].astype(np.int32)
-    meta = (jm, jh, jo, all_ws)
-    return reads, lens, all_wins, meta
+    table = AlignJobs(L, [fwd], [lens], [list(contig_set.seqs)],
+                      [np.stack([jm, jh, jo, all_ws]).astype(np.int32)])
+    return table, (jm, jh, jo, all_ws)
 
 
-def run_align_batches(reads, lens, wins, score_vec, band,
+def run_align_batches(jobs: AlignJobs, score_vec, band,
                       batch: int | None = None, device=None,
                       mesh=None) -> dict:
-    """Streams [J, L] job arrays through the alignment kernel in batches;
-    one blocking wait per batch at the end (launches and copies overlap) —
+    """Streams a job table through the alignment kernel in batches; one
+    blocking wait per batch at the end (launches and copies overlap) —
     the reference's alignment worker pool (locs.rs:1120-1146).  With
     `mesh`, each batch is split over the grid's shards
     (parallel/mesh.py:sharded_align).
@@ -382,66 +523,54 @@ def run_align_batches(reads, lens, wins, score_vec, band,
     device: None = CUDA (raises without one); "cpu" = the plain PyTorch
     version of the kernel."""
     return collect_align_batches(
-        dispatch_align_batches(reads, lens, wins, score_vec, band,
-                               batch=batch, device=device, mesh=mesh))
+        dispatch_align_batches(jobs, score_vec, band, batch=batch,
+                               device=device, mesh=mesh))
 
 
-def align_async(dev, reads, lens, wins, score_vec, band):
-    """One batch of jobs on `dev` (the current device): uploaded (with the
-    score vector) from pinned memory with `non_blocking=True`, so that no
-    copy waits for the kernels already queued, aligned by one kernel
-    launch, its eight outputs leaving as ONE [8, n] int32 tensor copied
-    asynchronously into pinned host memory.  Returns (result, event); the
-    event, recorded on `dev`'s current stream, marks the copy's end (None
-    on the CPU)."""
-    on_gpu = dev.type == "cuda"
-    args = []
-    for arr, dt in ((reads, np.int8), (lens, np.int32), (wins, np.int8),
-                    (score_vec, np.float32)):
-        t = torch.from_numpy(np.ascontiguousarray(arr, dt))
-        if on_gpu:
-            t = t.pin_memory().to(dev, non_blocking=True)
-        args.append(t)
-    res = _pack_align_results(A.align_banded(*args, band))
-    if not on_gpu:
+def align_async(staged: StagedJobs, lo: int, hi: int, n: int | None = None):
+    """Jobs lo..hi of a staged table (padded to `n` rows) on its device:
+    reads and windows gathered there, aligned by one kernel launch, its
+    eight outputs leaving as ONE [8, n] int32 tensor copied asynchronously
+    into pinned host memory.  Returns (result, event); the event, recorded
+    on the device's current stream, marks the copy's end (None on the
+    CPU)."""
+    reads, lens, wins = staged.gather(lo, hi, n)
+    res = _pack_align_results(A.align_banded(reads, lens, wins,
+                                             staged.score_vec, staged.band))
+    if res.device.type != "cuda":
         return res, None
     host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
     host.copy_(res, non_blocking=True)
     event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(dev))
+    event.record(torch.cuda.current_stream(res.device))
     return host, event
 
 
-def dispatch_align_batches(reads, lens, wins, score_vec, band,
+def dispatch_align_batches(jobs: AlignJobs, score_vec, band,
                            batch: int | None = None, device=None,
                            mesh=None) -> list:
-    """Dispatch half of `run_align_batches`: queues every batch on the
-    device (`align_async`) and returns the pending list without waiting for
-    the kernels — callers may overlap host work (candidate voting of the
-    next locus group, post-alignment of the previous) with the device leg.
+    """Dispatch half of `run_align_batches`: stages the job table on the
+    device once (`AlignJobs.stage`), queues every batch there
+    (`align_async`) and returns the pending list without waiting for the
+    kernels — callers may overlap host work (candidate voting of the next
+    locus group, post-alignment of the previous) with the device leg.
     With `mesh`, every batch is split over the grid's shards, each shard's
     copy marked by an event on its own device; `device` is then unused."""
-    J, L = reads.shape
+    J, L = len(jobs), jobs.L
     spans.count("k1_jobs", J)
+    if not J:
+        return []
     if batch is None:
         # ~6 M read bases per launch: bounds the device buffers, any J runs.
         batch = max(512, min(32768, (6 << 20) // max(int(L), 1)))
+    bounds = [(s, min(s + batch, J)) for s in range(0, J, batch)]
     if mesh is not None:
         from ..parallel.mesh import dispatch_sharded_align
-        pending = []
-        for s in range(0, J, batch):
-            sl = slice(s, min(s + batch, J))
-            pending.extend(dispatch_sharded_align(
-                mesh, reads[sl], lens[sl], wins[sl], score_vec, band))
-        return pending
-    dev = _kernels.resolve_device(device)
-    pending = []
-    for s in range(0, J, batch):
-        sl = slice(s, min(s + batch, J))
-        pending.append(align_async(dev, reads[sl], lens[sl], wins[sl],
-                                   score_vec, band)
-                       + (sl.stop - sl.start,))
-    return pending
+        staged: dict = {}
+        return [p for rows in bounds for p in dispatch_sharded_align(
+            mesh, jobs, score_vec, band, rows=rows, staged=staged)]
+    staged = jobs.stage(score_vec, band, _kernels.resolve_device(device))
+    return [align_async(staged, lo, hi) + (hi - lo,) for lo, hi in bounds]
 
 
 def collect_align_batches(pending: list) -> dict:
@@ -512,11 +641,10 @@ def _align_candidates(mates, jobs, contig_set, score_vec, band,
     collection are fully vectorized."""
     if np.asarray(jobs[0]).size == 0:
         return MateAlnTable.empty()
-    reads, lens, wins, meta = _prepare_align_jobs(mates, jobs, contig_set,
-                                                  band)
-    res = run_align_batches(reads, lens, wins, score_vec, band, batch=batch,
+    table, meta = _prepare_align_jobs(mates, jobs, contig_set, band)
+    res = run_align_batches(table, score_vec, band, batch=batch,
                             device=device)
-    return _finish_align(res, meta, lens)
+    return _finish_align(res, meta, table.job_lens())
 
 
 # ---------------------------------------------------------------------------
@@ -649,9 +777,7 @@ def build_all_alignments(read_pairs, names, contig_set: ContigSet,
     req = next(gen)
     res = None
     if req is not None:
-        reads, lens, wins, score_vec, band = req
-        res = run_align_batches(reads, lens, wins, score_vec, band,
-                                device=device, mesh=mesh)
+        res = run_align_batches(*req, device=device, mesh=mesh)
     return gen.send(res)
 
 
@@ -713,19 +839,16 @@ def build_all_alignments_panel(panel, bg: BgDistr, edit_cache: EditDistCache,
         return idxs, gens, reqs
 
     def dispatch_group(reqs):
-        """Device stage: one async dispatch of the group's concatenated
-        jobs; returns (pending, live, sizes)."""
+        """Device stage: one async dispatch of the group's joined job
+        tables (one upload); returns (pending, live, sizes)."""
         live = [j for j, r in enumerate(reqs) if r is not None]
         if not live:
             return None, live, []
-        score_vec, band = reqs[live[0]][3], reqs[live[0]][4]
-        cat_reads = np.concatenate([reqs[j][0] for j in live])
-        cat_lens = np.concatenate([reqs[j][1] for j in live])
-        cat_wins = np.concatenate([reqs[j][2] for j in live])
-        pending = dispatch_align_batches(cat_reads, cat_lens, cat_wins,
-                                         score_vec, band, device=device,
-                                         mesh=mesh)
-        return pending, live, [reqs[j][0].shape[0] for j in live]
+        score_vec, band = reqs[live[0]][1:]
+        jobs = AlignJobs.join(reqs[j][0] for j in live)
+        pending = dispatch_align_batches(jobs, score_vec, band,
+                                         device=device, mesh=mesh)
+        return pending, live, [len(reqs[j][0]) for j in live]
 
     out = [None] * len(panel)
 
@@ -805,7 +928,7 @@ def _build_all_alignments_gen(read_pairs, names, contig_set: ContigSet,
                               explicit_weights=None, span_parent=None,
                               profile: NeighbProfile | None = None):
     """Coroutine body of `build_all_alignments`: yields ONE device-align
-    request (reads, lens, wins, score_vec, band) — or None when no
+    request (job table, score_vec, band) — or None when no
     candidates — then receives the kernel outputs via .send() and yields
     the final (AllAlignments, stats).  Its `align.vote` and `align.jobs`
     spans name `span_parent` as their parent (the `align` span of a worker
@@ -851,10 +974,10 @@ def _build_all_alignments_gen(read_pairs, names, contig_set: ContigSet,
         tbl = MateAlnTable.empty()
     else:
         with spans.span("align.jobs", parent=span_parent):
-            reads, lens, wins, meta = _prepare_align_jobs(
-                mates, jobs, contig_set, params.band, L=panel_L)
-        res = yield (reads, lens, wins, score_vec, params.band)
-        tbl = _finish_align(res, meta, lens)
+            table, meta = _prepare_align_jobs(mates, jobs, contig_set,
+                                              params.band, L=panel_L)
+        res = yield (table, score_vec, params.band)
+        tbl = _finish_align(res, meta, table.job_lens())
 
     empty64 = np.empty(0, np.int64)
     empty_result = AllAlignments(

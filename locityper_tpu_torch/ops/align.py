@@ -231,7 +231,8 @@ def align_batch(reads, rlens, hap_wins, score_vec, band: int = 48,
 
     reads:    [N, L]        int8
     rlens:    [N]           int32
-    hap_wins: [N, L+band]   int8 (extracted on host at the candidate diagonal)
+    hap_wins: [N, L+band]   int8 (the haplotype's window at the candidate
+                            diagonal, pad 4 outside the haplotype)
     score_vec: [5] f32      (match, mism, ins, del, clip) ln-probs
     device: None = CUDA (raises without one); "cpu" = plain PyTorch version.
     Inputs may be numpy arrays or tensors; returns a dict of [N] tensors on

@@ -145,39 +145,41 @@ def _pad_rows(arr: np.ndarray, pad: int, fill) -> np.ndarray:
 # device's outputs to the bit)
 # ---------------------------------------------------------------------------
 
-def dispatch_sharded_align(mesh: Mesh, reads, rlens, hap_wins, score_vec,
-                           band: int) -> list:
-    """Dispatch half of `sharded_align`: the [N, L] jobs, padded with N
-    rows, zero lengths and N windows to a multiple of the shard count, split
-    in contiguous slices; each slice is aligned on its shard's device.
-    Returns pending (result, event, rows kept) entries in shard order, for
+def dispatch_sharded_align(mesh: Mesh, jobs, score_vec, band: int,
+                           rows=None, staged: dict | None = None) -> list:
+    """Dispatch half of `sharded_align`: jobs lo..hi (`rows`; all by
+    default) of a job table (`model/locs.py:AlignJobs`), padded with N
+    reads of length 0 in N windows to a multiple of the shard count, split
+    in contiguous slices; each shard gathers its slice's reads and windows
+    on its own device, from the table staged there once (`staged`: device
+    -> `StagedJobs`, filled on first use), and aligns it.  Returns pending
+    (result, event, rows kept) entries in shard order, for
     `model/locs.py:collect_align_batches`."""
     from ..model.locs import align_async
 
-    N = reads.shape[0]
-    per, pad = shard_rows(mesh, N)
-    reads = _pad_rows(np.asarray(reads), pad, 4)
-    rlens = _pad_rows(np.asarray(rlens), pad, 0)
-    hap_wins = _pad_rows(np.asarray(hap_wins), pad, 4)
+    lo, hi = rows if rows is not None else (0, len(jobs))
+    staged = {} if staged is None else staged
+    per, _ = shard_rows(mesh, hi - lo)
     pending = []
     for ix, dev in enumerate(mesh.shards):
-        sl = slice(ix * per, (ix + 1) * per)
-        keep = max(0, min(per, N - ix * per))
-        res, event = align_async(dev, reads[sl], rlens[sl], hap_wins[sl],
-                                 score_vec, band)
-        pending.append((res, event, keep))
+        if dev not in staged:
+            staged[dev] = jobs.stage(score_vec, band, dev)
+        a = min(lo + ix * per, hi)
+        b = min(a + per, hi)
+        res, event = align_async(staged[dev], a, b, per)
+        pending.append((res, event, b - a))
     return pending
 
 
-def sharded_align(mesh: Mesh, reads, rlens, hap_wins, score_vec,
-                  band: int = 48) -> dict:
-    """Read-batch-sharded banded alignment (P3/P4 of SURVEY.md §2.3): each
-    shard aligns its slice with the local kernel (`ops/align.py:
-    align_banded`), no collectives.  Returns {key: [N] numpy} like
-    `model/locs.py:run_align_batches`, equal to it to the bit."""
+def sharded_align(mesh: Mesh, jobs, score_vec, band: int = 48) -> dict:
+    """Read-batch-sharded banded alignment (P3/P4 of SURVEY.md §2.3) of a
+    job table: each shard aligns its slice with the local kernel
+    (`ops/align.py:align_banded`), no collectives.  Returns {key: [N]
+    numpy} like `model/locs.py:run_align_batches`, equal to it to the
+    bit."""
     from ..model.locs import collect_align_batches
     return collect_align_batches(dispatch_sharded_align(
-        mesh, reads, rlens, hap_wins, score_vec, band))
+        mesh, jobs, score_vec, band))
 
 
 class ShardedDecisions:

@@ -283,25 +283,55 @@ def card_mesh(card, n=2):
     return make_mesh(devices=[card] * n)
 
 
+def card_job_table(N=999, L=150, band=48, seed=2):
+    """N reads cut from one haplotype, half of the mates stored reverse
+    complemented, a few windows over either end of the haplotype."""
+    from types import SimpleNamespace
+
+    from locityper_tpu_torch.model.locs import _prepare_align_jobs
+    rng = np.random.default_rng(seed)
+    hap = rng.integers(0, 4, 20_000).astype(np.int8)
+    start = rng.integers(band, hap.size - 2 * L, N)
+    start[:5] = (-L - band - 7, -band, 3, hap.size - L, hap.size + 9)
+    reads = hap[np.clip(start[:, None] + np.arange(L)[None, :], 0,
+                        hap.size - 1)].copy()
+    reads[rng.random((N, L)) < 0.02] = 3
+    lens = rng.integers(L // 2, L + 1, N)
+    strand = rng.integers(0, 2, N)
+    mates = [(3 - r[:n][::-1]).astype(np.int8) if s else r[:n]
+             for r, n, s in zip(reads, lens, strand)]
+    table, _ = _prepare_align_jobs(
+        mates, (np.arange(N), np.zeros(N, np.int64), strand, start),
+        SimpleNamespace(seqs=[hap]), band, L=L)
+    sv = np.array(TA.Scores.from_error_rates(0.002, 0.0002, 0.0002)
+                  .astuple(), np.float32)
+    return table, sv, band
+
+
+def test_job_table_gathered_on_the_card_equals_the_cpu(card):
+    """A job table staged on the card gives the reads, lengths and windows
+    that the same table gives on the CPU, byte for byte, also in a shard's
+    padded slice."""
+    table, sv, band = card_job_table()
+    on_card = table.stage(sv, band, card)
+    on_cpu = table.stage(sv, band, torch.device("cpu"))
+    for lo, hi, n in ((0, len(table), None), (990, 999, 16)):
+        for got, want in zip(on_card.gather(lo, hi, n),
+                             on_cpu.gather(lo, hi, n)):
+            assert got.is_cuda and got.dtype == want.dtype
+            assert torch.equal(got.cpu(), want)
+
+
 def test_sharded_align_on_a_grid_of_one_card(card):
     """K1 under a grid of two shards on the card: padding (999 jobs), one
     launch a shard, every output equal to the one-device call's."""
     from locityper_tpu_torch import _kernels
     from locityper_tpu_torch.model.locs import run_align_batches
     from locityper_tpu_torch.parallel.mesh import sharded_align
-    rng = np.random.default_rng(2)
-    N, L, band = 999, 150, 48
-    hap = rng.integers(0, 4, 20_000).astype(np.int8)
-    start = rng.integers(band, hap.size - 2 * L, N)
-    reads = hap[start[:, None] + np.arange(L)[None, :]].copy()
-    reads[rng.random((N, L)) < 0.02] = 3
-    lens = rng.integers(L // 2, L + 1, N).astype(np.int32)
-    wins = hap[(start - band // 2)[:, None] + np.arange(L + band)[None, :]]
-    sv = np.array(TA.Scores.from_error_rates(0.002, 0.0002, 0.0002)
-                  .astuple(), np.float32)
-    want = run_align_batches(reads, lens, wins, sv, band, device=card)
+    table, sv, band = card_job_table()
+    want = run_align_batches(table, sv, band, device=card)
     _kernels.reset_launches()
-    got = sharded_align(card_mesh(card), reads, lens, wins, sv, band)
+    got = sharded_align(card_mesh(card), table, sv, band)
     assert _kernels.LAUNCHES["align_banded"] == 2
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)

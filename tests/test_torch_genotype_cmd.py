@@ -454,7 +454,8 @@ def traced_call(world, tmp_path_factory):
     from locityper_tpu_torch.model import locs
     from locityper_tpu_torch.ops import solver_chains
     from locityper_tpu_torch.utils import spans
-    seen = SimpleNamespace(recruited=None, k1_rows=[], chains=[])
+    seen = SimpleNamespace(recruited=None, k1_rows=[], k1_staged=[],
+                           k1_assembled=[], chains=[])
     mp = pytest.MonkeyPatch()
     orig_rec, orig_disp = TG.recruit_reads_fast, locs.dispatch_align_batches
     orig_anneal = solver_chains.anneal_chains
@@ -463,9 +464,13 @@ def traced_call(world, tmp_path_factory):
         seen.recruited, speed = orig_rec(*a, **k)
         return seen.recruited, speed
 
-    def dispatch(reads, *a, **k):
-        seen.k1_rows.append(reads.shape[0])
-        return orig_disp(reads, *a, **k)
+    def dispatch(jobs, score_vec, band, *a, **k):
+        seen.k1_rows.append(len(jobs))
+        seen.k1_staged.append(jobs.staged_nbytes(band))
+        # What the host assembled for the same jobs before the job table:
+        # reads, windows and lengths, J x (2 L + band + 4) bytes.
+        seen.k1_assembled.append(len(jobs) * (2 * jobs.L + band + 4))
+        return orig_disp(jobs, score_vec, band, *a, **k)
 
     def anneal(probs, winpk, *a, **k):
         seen.chains.append(winpk.shape[0])
@@ -534,6 +539,9 @@ def test_counters_equal_what_the_call_did(world, traced_call):
     n_haps = [len(world.loci[i].haplotypes) for i in range(len(LOCI))]
     assert c["genotypes_stage0"] == sum(h * (h + 1) // 2 for h in n_haps)
     assert c["k1_jobs"] == sum(traced_call.k1_rows) > 0
+    # One upload of each group's job table, a fraction of the job arrays.
+    assert c["k1_staged_bytes"] == sum(traced_call.k1_staged) > 0
+    assert c["k1_staged_bytes"] < sum(traced_call.k1_assembled) / 2
     stages = [s for s in traced_call.spans if s.name.startswith("solve.st")]
     for s in stages:
         assert c[f"genotypes_{s.name[6:]}"] == s.attrs["genotypes"]

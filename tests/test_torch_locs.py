@@ -8,6 +8,7 @@ the same candidate alignments.  The JAX side runs on the CPU with
 """
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -27,8 +28,10 @@ from locityper_tpu.seq.recruit import RecruitParams as JRecruitParams
 from locityper_tpu_torch import convert
 from locityper_tpu_torch.bg.err_prof import EditDistCache, EditThresh
 from locityper_tpu_torch.model import Params
+from locityper_tpu_torch.model import locs as TL
 from locityper_tpu_torch.model.locs import (build_all_alignments,
                                             build_all_alignments_panel)
+from locityper_tpu_torch.ops import align as TA
 from locityper_tpu_torch.pipeline import recruit_reads
 from locityper_tpu_torch.seq.recruit import RecruitParams
 
@@ -206,3 +209,146 @@ def test_build_all_alignments_panel_equal(panel):
     assert s_stats == got[0][1]
     np.testing.assert_array_equal(single.table.prob, got[0][0].table.prob)
     np.testing.assert_array_equal(single.c_prob, got[0][0].c_prob)
+
+
+# --- K1's inputs: the job table gathered on the device ----------------------
+
+def host_assembly(mates, jobs, haps, band, L):
+    """The host assembly that the job table replaced, kept here as the
+    oracle: every job's read picked from a forward and a reverse-complement
+    [M, L] matrix, its window cut from its haplotype by `extract_windows`.
+    Returns (reads [J, L], lens [J], wins [J, L + band], meta)."""
+    jm, jh, jo, jd = (np.asarray(a, np.int64) for a in jobs)
+    M = len(mates)
+    lens = np.fromiter((m.size for m in mates), np.int64, M)
+    fwd = np.full((M, L), 4, np.int8)
+    fwd[np.arange(L)[None, :] < lens[:, None]] = np.concatenate(mates)
+    comp = np.where(fwd < 4, 3 - fwd, 4).astype(np.int8)
+    src = lens[:, None] - 1 - np.arange(L)[None, :]
+    rc = np.where(src >= 0,
+                  comp[np.arange(M)[:, None], np.clip(src, 0, L - 1)],
+                  np.int8(4)).astype(np.int8)
+    W = L + band
+    all_ws = jd - band // 2
+    wins = np.full((jm.size, W), 4, np.int8)
+    for hp in np.unique(jh):
+        rows = np.nonzero(jh == hp)[0]
+        wins[rows] = TA.extract_windows(haps[hp], all_ws[rows], W)
+    reads = np.where(jo[:, None] == 1, rc[jm], fwd[jm])
+    return reads, lens[jm].astype(np.int32), wins, (jm, jh, jo, all_ws)
+
+
+def gather_locus(rng, n_haps, hap_len, n_mates, n_jobs, read_len, diag,
+                 strand=None):
+    """Haplotypes of about `hap_len`, mates cut from them (either strand,
+    a few N codes, lengths read_len // 4 to read_len) and jobs with their
+    diagonal drawn from `diag`, a (low, high) pair of functions of the
+    haplotype's length."""
+    haps = [rng.integers(0, 4, hap_len + rng.integers(-40, 41))
+            .astype(np.int8) for _ in range(n_haps)]
+    mates = []
+    for _ in range(n_mates):
+        h = haps[rng.integers(n_haps)]
+        n = int(rng.integers(read_len // 4, read_len + 1))
+        s = int(rng.integers(0, h.size - n))
+        m = h[s:s + n].copy()
+        if rng.random() < 0.5:
+            m = (3 - m[::-1]).astype(np.int8)
+        m[rng.random(n) < 0.01] = 4
+        mates.append(m)
+    jh = rng.integers(0, n_haps, n_jobs)
+    lo, hi = diag
+    jd = np.array([rng.integers(lo(haps[h].size), hi(haps[h].size))
+                   for h in jh], np.int64)
+    jo = (rng.integers(0, 2, n_jobs) if strand is None
+          else np.full(n_jobs, strand))
+    return mates, (rng.integers(0, n_mates, n_jobs), jh, jo, jd), haps
+
+
+ANY = (lambda n: -60, lambda n: n + 60)
+#: name: (loci as gather_locus's keywords, read length, panel L, band,
+#: batch)
+GATHER_CASES = {
+    "ws-below-zero": ([dict(n_haps=3, hap_len=600, n_mates=30, n_jobs=120,
+                            diag=(lambda n: -400, lambda n: 20))],
+                      100, None, 32, None),
+    "window-past-the-end": ([dict(n_haps=3, hap_len=600, n_mates=30,
+                                  n_jobs=120, diag=(lambda n: n - 150,
+                                                    lambda n: n + 400))],
+                            100, None, 32, None),
+    "reverse-short-reads": ([dict(n_haps=2, hap_len=500, n_mates=40,
+                                  n_jobs=100, diag=ANY, strand=1)],
+                            60, None, 16, None),
+    "panel-L-above-bucket": ([dict(n_haps=2, hap_len=500, n_mates=25,
+                                   n_jobs=80, diag=ANY)],
+                             60, 192, 16, None),
+    "three-loci-one-empty": ([dict(n_haps=2, hap_len=300, n_mates=20,
+                                   n_jobs=60, diag=ANY),
+                              dict(n_haps=5, hap_len=900, n_mates=30,
+                                   n_jobs=0, diag=ANY),
+                              dict(n_haps=4, hap_len=500, n_mates=25,
+                                   n_jobs=90, diag=ANY)],
+                             100, 128, 32, None),
+    "batch-inside-a-locus": ([dict(n_haps=3, hap_len=400, n_mates=20,
+                                   n_jobs=70, diag=ANY),
+                              dict(n_haps=2, hap_len=700, n_mates=30,
+                                   n_jobs=90, diag=ANY)],
+                             100, 128, 32, 37),
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_gathered_k1_inputs_equal_the_host_assembly(case, monkeypatch):
+    """A group's job tables, joined, staged and gathered batch by batch,
+    hand `ops/align.align_banded` (looked up by attribute) the host
+    assembly's reads, lengths and windows byte for byte, in job order;
+    `_finish_align` then gives the host assembly's table field for field."""
+    specs, read_len, panel_L, band, batch = GATHER_CASES[case]
+    rng = np.random.default_rng(sorted(GATHER_CASES).index(case))
+    loci = [gather_locus(rng, read_len=read_len, **s) for s in specs]
+    L = panel_L or -(-read_len // 64) * 64
+    sv = np.array(TA.Scores.from_error_rates(0.002, 0.0002, 0.0002)
+                  .astuple(), np.float32)
+    tables, metas = zip(*(TL._prepare_align_jobs(
+        mates, jobs, SimpleNamespace(seqs=haps), band, L=panel_L)
+        for mates, jobs, haps in loci))
+    want = [host_assembly(mates, jobs, haps, band, L)
+            for mates, jobs, haps in loci]
+    seen = []
+    align = TA.align_banded
+
+    def recording(reads, rlens, hap_wins, score_vec, band, *a):
+        seen.append((reads, rlens, hap_wins))
+        return align(reads, rlens, hap_wins, score_vec, band, *a)
+
+    monkeypatch.setattr(TA, "align_banded", recording)
+    joined = TL.AlignJobs.join(tables)
+    res = TL.run_align_batches(joined, sv, band, batch=batch, device="cpu")
+    n_jobs = sum(s["n_jobs"] for s in specs)
+    assert len(joined) == n_jobs
+    assert len(seen) == -(-n_jobs // (batch or n_jobs))
+    for i, name in enumerate(("reads", "lens", "wins")):
+        got = torch.cat([s[i] for s in seen]).numpy()
+        exp = np.concatenate([w[i] for w in want])
+        assert got.dtype == exp.dtype and got.shape == exp.shape, name
+        assert got.tobytes() == exp.tobytes(), name
+    assert seen[0][0].shape[1] == L and seen[0][2].shape[1] == L + band
+    if "ws-below" in case:
+        assert (np.concatenate([m[3] for m in metas]) < -(L + band)).any()
+    if "past-the-end" in case:
+        assert any((m[3] > np.array([loci[0][2][h].size for h in m[1]]))
+                   .any() for m in metas)
+
+    off = 0
+    for table, meta, (reads, lens, wins, w_meta) in zip(tables, metas, want):
+        n = len(table)
+        got = TL._finish_align({k: v[off:off + n] for k, v in res.items()},
+                               meta, table.job_lens())
+        ref = {k: v.numpy() for k, v in TA.align_batch_reference(
+            *(torch.from_numpy(x) for x in (reads, lens, wins, sv)),
+            band).items()}
+        exp = TL._finish_align(ref, w_meta, lens)
+        for f in TL.MateAlnTable._FIELDS:
+            np.testing.assert_array_equal(getattr(got, f), getattr(exp, f),
+                                          err_msg=f)
+        off += n

@@ -11,6 +11,7 @@ sums in another order) and select the same genotypes.
 """
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -31,7 +32,8 @@ from locityper_tpu.solvers.solve import select_by_scores as j_select
 from locityper_tpu_torch import convert
 from locityper_tpu_torch.commands import genotype as G
 from locityper_tpu_torch.model.assgn import LocusTensors
-from locityper_tpu_torch.model.locs import (build_all_alignments_panel,
+from locityper_tpu_torch.model.locs import (_prepare_align_jobs,
+                                            build_all_alignments_panel,
                                             run_align_batches)
 from locityper_tpu_torch.ops import align as TA
 from locityper_tpu_torch.ops import recruit as TR
@@ -79,17 +81,25 @@ def test_make_mesh_and_auto_mesh():
 
 
 def align_jobs(seed, N, L=64, band=16):
+    """A job table of N reads cut from one haplotype (2 % of bases turned
+    to T, every 7th read empty), half of the mates stored as the reverse
+    complement of their read, each job at its read's own diagonal."""
     rng = np.random.default_rng(seed)
     hap = rng.integers(0, 4, 3000).astype(np.int8)
     start = rng.integers(band, 2800 - L, N)
     reads = hap[start[:, None] + np.arange(L)].copy()
     reads[rng.random((N, L)) < 0.02] = 3
-    lens = rng.integers(L // 2, L + 1, N).astype(np.int32)
+    lens = rng.integers(L // 2, L + 1, N)
     lens[::7] = 0
-    wins = hap[(start - band // 2)[:, None] + np.arange(L + band)]
+    strand = rng.integers(0, 2, N)
+    mates = [(3 - r[:n][::-1]).astype(np.int8) if s else r[:n]
+             for r, n, s in zip(reads, lens, strand)]
+    jobs = (np.arange(N), np.zeros(N, np.int64), strand, start)
+    table, _ = _prepare_align_jobs(mates, jobs, SimpleNamespace(seqs=[hap]),
+                                   band, L=L)
     sv = np.array(TA.Scores.from_error_rates(0.002, 0.0002, 0.0002)
                   .astuple(), np.float32)
-    return reads, lens, wins, sv, band
+    return table, sv, band
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -97,12 +107,11 @@ def test_sharded_align_equals_unsharded(n):
     """37 jobs (padding to a multiple of 2 and of 4), also in batches of
     10 through `run_align_batches(..., mesh=)`: every output equal to the
     one-device call's."""
-    reads, lens, wins, sv, band = align_jobs(n, 37)
-    want = run_align_batches(reads, lens, wins, sv, band, device="cpu")
+    jobs, sv, band = align_jobs(n, 37)
+    want = run_align_batches(jobs, sv, band, device="cpu")
     mesh = cpu_mesh(n)
-    for got in (M.sharded_align(mesh, reads, lens, wins, sv, band),
-                run_align_batches(reads, lens, wins, sv, band, batch=10,
-                                  mesh=mesh)):
+    for got in (M.sharded_align(mesh, jobs, sv, band),
+                run_align_batches(jobs, sv, band, batch=10, mesh=mesh)):
         assert set(got) == set(want)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
