@@ -4,12 +4,14 @@ reference (`reference.py`) and against the simulated truth.
 
 Numbers compared, each with its limit in `limits/<cell>.json`:
 
-* `recruit_diff`: pairs recruited to a locus by the program and not by the
-  reference, or the other way round, summed over the window's calls.
+* `recruit_diff`: pairs (single reads) recruited to a locus by the program
+  and not by the reference, or the other way round, summed over the
+  window's calls.
 * `align_diff`: jobs of a seed-drawn sample of every alignment launch whose
   outputs differ from the reference aligner's on the same job, or whose
-  read is not a mate of a pair the reference recruited in that sample, or
-  whose window is not a stretch of a panel haplotype.
+  read is neither strand of a mate of a pair (of a single read) the
+  reference recruited in that sample, or whose window is not a stretch of
+  a panel haplotype.
 * `lik_gap`: the largest gap, relative to its size, between the likelihood
   the annealer returned for a seed-drawn chain and the reference's
   re-scoring of the end state it returned.
@@ -40,6 +42,8 @@ from .trace import patch
 NAMES = ("recruit_diff", "align_diff", "lik_gap", "unpolished_share",
          "wrong_call_share")
 JOBS_PER_LAUNCH = 16
+#: Bytes of reads and windows the reference aligner takes in one pass.
+ALIGN_BLOCK_BYTES = 1 << 30
 CHAINS_PER_LAUNCH = 2
 #: ln-likelihood a move must add to count as a step up: far above the
 #: float32 rounding of the kernel's incremental sums.
@@ -166,9 +170,11 @@ def recruit_diff(probe_recruited, expected):
 
 
 def _origins(sample: gen.Sample, flank, recruited_names):
-    """Byte strings of both strands of every mate of the pairs the
-    reference recruited in a sample."""
-    by_name = dict(zip(sample.names, zip(sample.mates1, sample.mates2)))
+    """Byte strings of both strands of every mate of the pairs (every
+    single read) the reference recruited in a sample."""
+    by_name = dict(zip(sample.names, zip(sample.mates1, sample.mates2)
+                       if sample.mates2 is not None
+                       else ((m,) for m in sample.mates1)))
     fn = {}
     out = set()
     for name in recruited_names:
@@ -193,33 +199,75 @@ def haplotype_bytes(loci) -> bytes:
                     for lc in loci for h in lc.haplotypes)
 
 
-def align_diff(jobs, sample_of_call, origins_of_sample, haplotypes):
-    """Jobs whose outputs differ from the reference aligner's, or whose
-    read or window has no origin in the sample.  Jobs of one shape and one
-    score vector are aligned together."""
+def _blocks(group, row_bytes):
+    """The probed launches of `group` in runs of at most ALIGN_BLOCK_BYTES
+    of reads and windows at `row_bytes` a job (one launch at the least)."""
+    block, size = [], 0
+    for job in group:
+        n = job[1].shape[0] * row_bytes
+        if block and size + n > ALIGN_BLOCK_BYTES:
+            yield block
+            block, size = [], 0
+        block.append(job)
+        size += n
+    if block:
+        yield block
+
+
+def align_groups(jobs):
+    """Probed launches of one band, deletion cap and score vector, which
+    the reference aligner takes together."""
     groups = {}
     for job in jobs:
-        _, reads, _, wins, sv, band, mdr, _ = job
-        key = (reads.shape[1], wins.shape[1], band, mdr,
-               sv.cpu().numpy().tobytes())
-        groups.setdefault(key, []).append(job)
+        sv, band, mdr = job[4:7]
+        groups.setdefault((band, mdr, sv.cpu().numpy().tobytes()),
+                          []).append(job)
+    return list(groups.values())
+
+
+def reference_align(group, dtype=torch.float32):
+    """The reference aligner's outputs for the launches of one group, one
+    dict a launch.  Reads and windows are padded with N to the group's
+    widest, which leaves every job's result as it was (the aligner reads a
+    job's rows up to its length only), so launches of many widths take one
+    pass of rows a block."""
+    sv, band, mdr = group[0][4:7]
+    L = max(j[1].shape[1] for j in group)
+    W = max(j[3].shape[1] for j in group)
+
+    def pad(x, width):
+        return torch.nn.functional.pad(x, (0, width - x.shape[1]), value=4)
+
+    out = []
+    for block in _blocks(group, L + W):
+        want = reference.align(torch.cat([pad(j[1], L) for j in block]),
+                               torch.cat([j[2] for j in block]),
+                               torch.cat([pad(j[3], W) for j in block]),
+                               sv, band, mdr, dtype)
+        parts = {k: v.split([j[1].shape[0] for j in block])
+                 for k, v in want.items()}
+        out += [{k: v[i] for k, v in parts.items()}
+                for i in range(len(block))]
+    return out
+
+
+def align_diff(jobs, sample_of_call, origins_of_sample, haplotypes):
+    """Jobs whose outputs differ from the reference aligner's, or whose
+    read or window has no origin in the sample."""
     bad = 0
-    for group in groups.values():
-        cat = [torch.cat(x) for x in zip(*[j[1:4] for j in group])]
-        _, _, _, _, sv, band, mdr, _ = group[0]
-        want = reference.align(*cat, sv, band, mdr)
-        same = torch.ones(cat[0].shape[0], dtype=torch.bool,
-                          device=cat[0].device)
-        for k, v in want.items():
-            got = torch.cat([j[7][k] for j in group])
-            same &= got.to(v.dtype) == v
-        same = iter(same.cpu().numpy())
-        for call, reads, rlens, wins, *_ in group:
+    for group in align_groups(jobs):
+        for job, want in zip(group, reference_align(group)):
+            call, reads, rlens, wins, *_, got = job
+            same = torch.ones(reads.shape[0], dtype=torch.bool,
+                              device=reads.device)
+            for k, v in want.items():
+                same &= got[k].to(v.dtype) == v
+            same = same.cpu().numpy()
             origins = origins_of_sample[sample_of_call[call]]
             r_np, l_np = reads.cpu().numpy(), rlens.cpu().numpy()
             for j, w in enumerate(wins.cpu().numpy()):
                 core = np.trim_zeros(np.where(w >= 4, 0, w.astype(int) + 1))
-                bad += not (next(same)
+                bad += not (same[j]
                             and r_np[j, :l_np[j]].tobytes() in origins
                             and (core - 1).astype(np.int8).tobytes()
                             in haplotypes)
@@ -249,7 +297,8 @@ def expected_recruitment(calls, loci, genome, starts, samples, flank,
     the control's) for every probed call's sample."""
     index = reference.RecruitIndex(loci, genome, starts, device, bits)
     # The flank pairs, shared by every sample, are decided once.
-    shared = reference.recruit(index, [], [], [], flank)
+    shared = {} if flank is None else reference.recruit(index, [], [], [],
+                                                        flank)
     by_sample = {}
     out = {}
     for c, s, _ in calls:
@@ -257,8 +306,11 @@ def expected_recruitment(calls, loci, genome, starts, samples, flank,
             continue
         if s not in by_sample:
             smp = samples[s]
-            own = reference.recruit(index, smp.names, smp.mates1, smp.mates2)
-            by_sample[s] = {k: v | shared[k] for k, v in own.items()}
+            own = reference.recruit_single(index, smp.names, smp.mates1) \
+                if smp.mates2 is None else \
+                reference.recruit(index, smp.names, smp.mates1, smp.mates2)
+            by_sample[s] = {k: v | shared.get(k, set())
+                            for k, v in own.items()}
         out[c] = by_sample[s]
     return out
 

@@ -10,17 +10,20 @@ probes, and the numbers of `check.py` for them (the program's readings).
 For the first `--controls` seeds also:
 
 * the control: the reference put in the program's place in a lower
-  precision: recruitment with 16-bit minimizer keys, the aligner in
-  bfloat16, the annealer's likelihood summed in bfloat16;
+  precision: recruitment with 16-bit minimizer keys (pairs or single
+  reads), the aligner in bfloat16, the annealer's likelihood summed in
+  bfloat16;
 * the faults, each planted in the program for one more call: the annealer
-  returning its state unchanged; half of every recruitment batch left out;
-  a call altered where `res.json.gz` is written.
+  returning its state unchanged; half of every recruitment batch left out
+  (at the pair or the long-read decision); a call altered where
+  `res.json.gz` is written.
 
 One JSON line a seed.  The benchmark's own runs never run this.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -50,13 +53,13 @@ def unchanged_state(orig):
 
 
 def half_batch(orig):
-    """Recruitment leaves out half of every batch of pairs, every second
-    pair."""
-    def _pairs_decide(cfg, both, keys_signed, packed):
-        dec = orig(cfg, both, keys_signed, packed)
+    """Recruitment leaves out half of every batch of pairs (of long single
+    reads), every second row of the decisions."""
+    def decide(cfg, reads, *args):
+        dec = orig(cfg, reads, *args)
         dec[1::2] = 0
         return dec
-    return _pairs_decide
+    return decide
 
 
 def altered_call(orig):
@@ -71,20 +74,24 @@ def altered_call(orig):
     return to_json
 
 
-#: Fault -> ("module" or "module:Class", attribute, wrapper maker).
+#: Fault -> [("module" or "module:Class", attribute, wrapper maker)].
 FAULTS = {
-    "unchanged_state": ("locityper_tpu_torch.ops.solver_chains",
-                        "anneal_chains", unchanged_state),
-    "half_batch": ("locityper_tpu_torch.ops.recruit", "_pairs_decide",
-                   half_batch),
-    "altered_call": ("locityper_tpu_torch.solvers.solve:Genotyping",
-                     "to_json", altered_call),
+    "unchanged_state": [("locityper_tpu_torch.ops.solver_chains",
+                         "anneal_chains", unchanged_state)],
+    "half_batch": [("locityper_tpu_torch.ops.recruit", decide, half_batch)
+                   for decide in ("_pairs_decide", "_long_decide")],
+    "altered_call": [("locityper_tpu_torch.solvers.solve:Genotyping",
+                      "to_json", altered_call)],
 }
 
 
+@contextlib.contextmanager
 def fault(name):
     """Plants a fault of FAULTS in the program while in use."""
-    return patch(*FAULTS[name])
+    with contextlib.ExitStack() as stack:
+        for where in FAULTS[name]:
+            stack.enter_context(patch(*where))
+        yield
 
 
 def probed_calls(cell, probe, first, n, sample=None):
@@ -116,11 +123,10 @@ def numbers_of(cell, probe, calls, device, bits=32):
 
 def control_numbers(cell, probe, calls, device):
     """The reference in the program's place, in lower precision."""
-    jobs = []
-    for call, reads, rlens, wins, sv, band, mdr, _ in probe.jobs:
-        low = reference.align(reads, rlens, wins, sv, band, mdr,
-                              torch.bfloat16)
-        jobs.append((call, reads, rlens, wins, sv, band, mdr, low))
+    jobs = [job[:7] + (low,)
+            for group in check.align_groups(probe.jobs)
+            for job, low in zip(group,
+                                check.reference_align(group, torch.bfloat16))]
     chains = []
     for ch in probe.chains:
         low = dict(ch)

@@ -1,14 +1,23 @@
 """The benchmark's inputs, drawn from `--seed`: a haplotype panel, the
-genome it sits in, and samples of paired short reads in gzip FASTQ.
+genome it sits in, and samples of paired short reads or of single long
+reads in gzip FASTQ.
 
 The simulator functions are frozen copies of those of the port's `sim.py`
-(`random_genome`, `mutate`, `simulate_structured_locus`) and of
-`chip_smoke.py` (`build_genome`'s layout, `sample_pairs`,
-`write_fastq_arrays`), so that a later change to the program does not
+(`random_genome`, `mutate`, `simulate_structured_locus`, `make_paralog`)
+and of `chip_smoke.py` (`build_genome`'s layout, `sample_pairs`,
+`write_fastq_arrays`; for long reads `build_paralog_sample`'s and
+`build_ont_paralog_sample`'s widened paralog locus and
+`draw_single_reads`), so that a later change to the program does not
 change the yardstick.  Two departures, both for set-up time: a sample's
 true genotypes are drawn apart from its panel (every sample of a run shares
 one database), and the locus pairs apply `sim.ErrorModel`'s per-base model
 (deletion | insertion before | mismatch | match) to whole arrays at once.
+
+A configuration whose `reads.technology` is `ont` or `hifi` is one of
+single reads (`read_len_mean`, `read_len_sd`, the per-base error rates);
+one whose panel has a `paralog` (`identity`, `spacer`, `margin`) widens
+every locus around its gene.  Without those keys nothing here draws
+otherwise than for paired reads.
 
 Nothing here imports the port.
 """
@@ -91,16 +100,41 @@ def structured_locus(rng, name, length, n_clades, haps_per_clade,
                  [clade_of[i] for i in order])
 
 
+def make_paralog(rng, seq, identity):
+    """The port's sim.make_paralog: a copy of `seq` at `identity`, nine
+    tenths of the difference substitutions, a tenth indels."""
+    div = max(1.0 - identity, 0.0)
+    return mutate(rng, seq, snp_rate=div * 0.9, indel_rate=div * 0.1)
+
+
+def widen(rng, locus: Locus, paralog: dict) -> Locus:
+    """chip_smoke.py (k)'s widened locus: `margin` bases of flank, the
+    gene's haplotype, a random spacer of `spacer` bases, the paralog
+    (`make_paralog` of the first haplotype at `identity`) and `margin`
+    bases of flank; every haplotype shares all but the gene."""
+    para = make_paralog(rng, locus.haplotypes[0], paralog["identity"])
+    spacer = random_genome(rng, paralog["spacer"])
+    left = random_genome(rng, paralog["margin"])
+    right = random_genome(rng, paralog["margin"])
+    return Locus(locus.name,
+                 [np.concatenate([left, h, spacer, para, right])
+                  for h in locus.haplotypes],
+                 locus.hap_names, locus.clade_of)
+
+
 def build_panel(cfg: dict, seed: int):
     """(loci, genome, flanks, starts) of a configuration: every locus's
     first haplotype between random flanks of `flank_len`, as
-    chip_smoke.py:build_genome lays them out."""
+    chip_smoke.py:build_genome lays them out; with a `paralog`, each locus
+    widened around its gene (`widen`)."""
     rng = rng_for(seed, PANEL)
     p = cfg["panel"]
     loci = [structured_locus(rng, f"{p['prefix']}{i}", p["locus_len"],
                              p["n_clades"], p["haps_per_clade"],
                              p["clade_divergence"], p["within_divergence"])
             for i in range(p["n_loci"])]
+    if "paralog" in p:
+        loci = [widen(rng, lc, p["paralog"]) for lc in loci]
     flanks = [random_genome(rng, cfg["flank_len"])
               for _ in range(len(loci) + 1)]
     parts, starts, pos = [], [], 0
@@ -199,11 +233,12 @@ def locus_pairs(rng, haps, depth, reads):
 @dataclass
 class Sample:
     """One sample: its true genotype at every locus and its locus pairs;
-    the flank pairs are shared by every sample of a run."""
+    the flank pairs are shared by every sample of a run.  A sample of
+    single reads holds all its reads in `mates1`, and `mates2` is None."""
     truth: dict             # locus name -> (hap index, hap index)
     names: list
     mates1: list
-    mates2: list
+    mates2: list | None
 
 
 def draw_sample(loci, cfg, traffic, seed, index) -> Sample:
@@ -229,6 +264,72 @@ def flank_pairs(flanks, cfg, traffic, seed):
                         traffic["locus_depth"] * traffic["flank_multiple"],
                         traffic["flank_sub_rate"], r["read_len"],
                         r["insert_mean"], r["insert_sd"])
+
+
+def single_reads(cfg) -> bool:
+    """The configuration's reads are single long reads."""
+    return cfg["reads"]["technology"] in ("ont", "hifi")
+
+
+def draw_single_reads(rng, copies, depth, length, errors, prefix):
+    """chip_smoke.py:draw_single_reads: single reads along each sequence of
+    `copies` at `depth` a copy, as `sim.simulate_single_reads` draws them
+    (lengths N(mean, sd), at least 300; the reverse strand in half the
+    draws; `errors` (mismatch, insertion, deletion) as
+    `sim.ErrorModel.apply`'s per-base events, drawn for all bases of a read
+    at once).  Returns (names, reads)."""
+    mism_p, ins_p, del_p = errors
+    names, reads = [], []
+    for seq in copies:
+        covered = 0
+        while covered < depth * seq.size:
+            span = min(max(int(rng.normal(*length)), 300), seq.size)
+            start = int(rng.integers(0, seq.size - span + 1))
+            frag = seq[start:start + span]
+            if rng.random() < 0.5:
+                frag = (3 - frag[::-1]).astype(np.int8)
+            r = rng.random(span)
+            out = frag.copy()
+            mism = (r >= del_p + ins_p) & (r < del_p + ins_p + mism_p)
+            out[mism] = (out[mism] + rng.integers(1, 4, int(mism.sum()))) % 4
+            keep = r >= del_p
+            ins = (r < del_p + ins_p)[keep]
+            extra = rng.integers(0, 4, int(ins.sum())).astype(np.int8)
+            reads.append(np.insert(out[keep], np.flatnonzero(ins), extra))
+            names.append(f"{prefix}{len(names):06d}")
+            covered += span
+    return names, reads
+
+
+def draw_single_sample(loci, flanks, cfg, traffic, seed, index) -> Sample:
+    """A sample of single reads, as chip_smoke.py (k) draws one: two copies
+    of the whole contig, each with one haplotype of every locus's true
+    genotype in the locus's place, and reads along both.  The off-target
+    part (the flanks) is read at `locus_depth` x `flank_multiple` a copy
+    and the loci at `locus_depth`: both copies are read whole at the lower
+    of the two depths, and the loci's (or the flanks') stretches of each
+    copy alone again up to the higher."""
+    rng = rng_for(seed, SAMPLE + index)
+    truth = {lc.name: draw_truth(rng, lc) for lc in loci}
+    haps = [[lc.haplotypes[truth[lc.name][c]] for lc in loci]
+            for c in (0, 1)]
+    copies = [np.concatenate([p for pair in zip(flanks, h) for p in pair]
+                             + [flanks[-1]]) for h in haps]
+    r = cfg["reads"]
+    draw = dict(length=(r["read_len_mean"], r["read_len_sd"]),
+                errors=(r["mismatch"], r["insertion"], r["deletion"]))
+    on, off = traffic["locus_depth"], \
+        traffic["locus_depth"] * traffic["flank_multiple"]
+    names, reads = draw_single_reads(rng, copies, min(on, off),
+                                     prefix=f"s{index}_", **draw)
+    if on != off:
+        more, part = ([h for c in haps for h in c], "loci") if on > off \
+            else (flanks * 2, "flanks")
+        n, rd = draw_single_reads(rng, more, abs(on - off),
+                                  prefix=f"s{index}_{part}_", **draw)
+        names += n
+        reads += rd
+    return Sample(truth, names, reads, None)
 
 
 # -- files -------------------------------------------------------------------
@@ -293,6 +394,13 @@ def write_sample_fastq(tmp: Path, index, sample: Sample, flank_gz):
             while chunk := src.read(1 << 24):
                 dst.write(chunk)
     return out
+
+
+def write_sample_single(tmp: Path, index, sample: Sample):
+    """reads_<index>.fq.gz: the sample's single reads."""
+    out = tmp / f"reads_{index}.fq.gz"
+    _gzip_to(out, fastq_bytes(sample.names, sample.mates1))
+    return [out]
 
 
 def write_fasta(f, name, seq):

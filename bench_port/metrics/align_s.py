@@ -1,5 +1,5 @@
 """align_s: seconds a sample in the align layer's span, the harness's wrapper
-around its entry (trace.SPANS["align"]), which ends in a synchronisation."""
+around its entries (trace.SPANS["align"]), which ends in a synchronisation."""
 
 
 def read(trace):

@@ -1,5 +1,6 @@
-"""recruit_s: seconds a sample in the recruit layer's span, the harness's wrapper
-around its entry (trace.SPANS["recruit"]), which ends in a synchronisation."""
+"""recruit_s: seconds a sample in the recruit layer's span, the harness's
+wrapper around its entries (trace.SPANS["recruit"]), which ends in a
+synchronisation."""
 
 
 def read(trace):

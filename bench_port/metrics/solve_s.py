@@ -1,5 +1,5 @@
 """solve_s: seconds a sample in the solve layer's span, the harness's wrapper
-around its entry (trace.SPANS["solve"]), which ends in a synchronisation."""
+around its entries (trace.SPANS["solve"]), which ends in a synchronisation."""
 
 
 def read(trace):

@@ -11,6 +11,17 @@ the program made: the panel, the genome and the reads come from `gen.py`.
   recruit.rs:885-932 with match fraction 1/2.  A read is scanned as the
   card scans it, in a row padded with N, so windows that run past its end
   count; a haplotype is scanned whole windows only.
+* Single reads (a sample of long reads), by recruit.rs's rules for one
+  read with match fraction 1/2, the long-read technologies' default: a
+  read of over 500 bases by the long-read rule (:966-997: the rare matches
+  of the better strand against min(`-L/--match-len` 2000 as
+  `STRETCH_MINIMS` minimizers, the minimizers that strand does not hit) x
+  1/2, and, for a read of that many minimizers or more, a stretch whose
+  maximum subarray of +1 a hit, +3 more if rare, -1 a minimizer reaches
+  `STRETCH_SCORE`, summed minimizer by minimizer as recruit.rs:940-964
+  does), in a row of its power-of-two length class from 1,024 bases; a
+  shorter one by the single short-read rule (:852-881), all such reads of
+  a sample in one row width, the next multiple of 64 of the longest.
 * The banded aligner, a frozen copy of the port's plain version
   (`ops/align.py:align_batch_reference`), run on jobs the timed path
   launched.
@@ -33,7 +44,12 @@ K, W_MIN = 15, 10            # minimizer k-mer and window (genotype's -m 15,10)
 COUNT_K = 25                 # add's -k: the k-mers counted in the genome
 RARE_BELOW = 10              # genotype's --kmer-thresh
 RARE_WORTH = 3               # recruit.rs:28
-MATCH_P, MATCH_Q = 1, 2      # paired Illumina match fraction 0.5
+MATCH_P, MATCH_Q = 1, 2      # match fraction 0.5: pairs and long reads
+SHORT_CAP = 500              # single reads up to this long are short
+MATCH_LEN = 2000             # genotype's -L/--match-len
+STRETCH_MINIMS = -(-2 * MATCH_LEN // (W_MIN + 1))
+STRETCH_SCORE = -(-max(STRETCH_MINIMS * (4 * MATCH_P - MATCH_Q),
+                       3 * MATCH_Q) // MATCH_Q)
 UNDEF = 1 << 32              # above every 32-bit hash
 DIR_BW, DIR_FW, RARE_BIT = 1, 2, 4
 NEG = -1e30
@@ -196,6 +212,63 @@ class RecruitIndex:
                         dim=2)
         return c, total
 
+    def _hits(self, codes):
+        """A row's selected minimizers in order: (fw_hit, bw_hit, rare,
+        selected), each [B, S, loci] bool but `selected` [B, S], and the
+        [B] minimizer totals."""
+        h, is_fw, sel = minimizers(codes, bits=self.bits)
+        total = sel.sum(dim=1)
+        S = max(int(total.max()) if total.numel() else 0, 1)
+        order = torch.argsort((~sel).to(torch.uint8), dim=1, stable=True)
+        h, is_fw, sel = (torch.gather(t, 1, order[:, :S])
+                         for t in (h, is_fw, sel))
+        i = torch.searchsorted(self.keys, h).clamp(max=self.keys.numel() - 1)
+        found = sel & (self.keys[i] == h)
+        info = self.table[torch.where(found, i, self.keys.numel())] \
+            .to(torch.int64)
+        f = is_fw[:, :, None]
+        fw_hit = torch.where(f, info & DIR_FW, info & DIR_BW) != 0
+        bw_hit = torch.where(f, info & DIR_BW, info & DIR_FW) != 0
+        return fw_hit, bw_hit, (info & RARE_BIT) != 0, sel, total
+
+    def decide_short(self, codes):
+        """[B, loci] bool: short single reads (recruit.rs:852-881)."""
+        c, t = self.counters(codes)
+        bw_c, fw_c, bw_r, fw_r = c.unbind(2)
+        t = t[:, None]
+        fw_n, bw_n = RARE_WORTH * fw_r + fw_c, RARE_WORTH * bw_r + bw_c
+        use_fw = fw_n >= bw_n
+        n = torch.where(use_fw, fw_n, bw_n)
+        d = torch.where(use_fw, RARE_WORTH * (t - fw_c) + fw_c,
+                        RARE_WORTH * (t - bw_c) + bw_c).clamp(min=1)
+        return ((bw_r + fw_r) > 0) & (n * MATCH_Q >= MATCH_P * d)
+
+    def decide_long(self, codes):
+        """[B, loci] bool: long single reads (recruit.rs:966-997)."""
+        fw_hit, bw_hit, rare, sel, total = self._hits(codes)
+        fw_c, bw_c = (fw_hit & ~rare).sum(1), (bw_hit & ~rare).sum(1)
+        fw_r, bw_r = (fw_hit & rare).sum(1), (bw_hit & rare).sum(1)
+        use_fw = fw_r >= bw_r
+        numer = torch.where(use_fw, fw_r, bw_r)
+        denom = total[:, None] - torch.where(use_fw, fw_c, bw_c)
+        m = denom.clamp(max=STRETCH_MINIMS)
+        thresh = torch.div(m * MATCH_P + MATCH_Q - 1, MATCH_Q,
+                           rounding_mode="floor").clamp(min=1)
+        # The matching stretch, minimizer by minimizer (recruit.rs:940-964):
+        # a hit adds 1, 3 more if rare; every minimizer takes 1; the sum
+        # never falls below 0; the read passes once it reaches the score.
+        x = 1 + 3 * rare.to(torch.int64)
+        s_fw = torch.zeros_like(fw_c)
+        s_bw = torch.zeros_like(fw_c)
+        best = torch.zeros_like(fw_c)
+        for j in range(sel.shape[1]):
+            on = sel[:, j, None].to(torch.int64)
+            s_fw = (s_fw + fw_hit[:, j] * x[:, j] - on).clamp(min=0)
+            s_bw = (s_bw + bw_hit[:, j] * x[:, j] - on).clamp(min=0)
+            best = torch.maximum(best, torch.maximum(s_fw, s_bw))
+        stretch = (denom < STRETCH_MINIMS) | (best >= STRETCH_SCORE)
+        return (numer >= thresh) & stretch
+
     def decide_pairs(self, codes1, codes2):
         """[B, loci] bool: the pair is recruited to the locus."""
         a, t1 = self.counters(codes1)
@@ -218,6 +291,43 @@ class RecruitIndex:
         rare = (bw_r1 + fw_r1 + bw_r2 + fw_r2) > 0
         # Only loci that mate 1 hits are candidates (recruit.rs:915-917).
         return ok & rare & (a.sum(2) > 0)
+
+
+def _single_rows(reads):
+    """[(row width, read indices)]: reads over SHORT_CAP bases by
+    power-of-two length class from 1,024, the rest together at the next
+    multiple of 64 of the longest."""
+    groups = {}
+    for i, r in enumerate(reads):
+        if r.size > SHORT_CAP:
+            width = 1024
+            while width < r.size:
+                width *= 2
+        else:
+            width = 0
+        groups.setdefault(width, []).append(i)
+    if 0 in groups:
+        short = groups.pop(0)
+        groups[-(-max(reads[i].size for i in short) // 64) * 64] = short
+    return sorted(groups.items())
+
+
+def recruit_single(index: RecruitIndex, names, reads, codes_a_block=1 << 21):
+    """{locus: set of read names} for single reads, in blocks of about
+    `codes_a_block` codes."""
+    dev = index.keys.device
+    out = {n: set() for n in index.names}
+    for width, rows in _single_rows(reads):
+        decide = index.decide_long if width > SHORT_CAP \
+            else index.decide_short
+        step = max(codes_a_block // width, 1)
+        for s in range(0, len(rows), step):
+            part = rows[s:s + step]
+            hits = torch.nonzero(decide(_pad_rows(
+                [reads[i] for i in part], width, dev))).cpu().numpy()
+            for r, li in hits:
+                out[index.names[li]].add(names[part[r]])
+    return out
 
 
 def recruit(index: RecruitIndex, names, mates1, mates2, flank=None,

@@ -98,8 +98,10 @@ def cache_env(root: Path):
 
 
 def background_model(traffic):
-    """The saved background distributions in the port's JSON layout."""
+    """The saved background distributions in the port's JSON layout; a
+    model of single reads has no insert distribution (`{}`)."""
     m = dict(traffic["background_model"])
+    m.setdefault("insert_distr", {})
     d = m.pop("bg_depth")
     m["bg_depth"] = {"ploidy": d["ploidy"], "window": d["window"],
                      "neighb": d["neighb"], "n": [d["n"]] * d["gc_bins"],
@@ -120,10 +122,30 @@ class Cell:
     # -- set-up --------------------------------------------------------------
 
     def draw(self):
+        """The panel, the genome, the samples and their FASTQ files: two a
+        sample of pairs, the shared flank pairs appended to each; one a
+        sample of single reads, its off-target reads its own."""
         from . import gen
         cfg, tr, work = self.cfg, self.traffic, self.work
         self.loci, self.genome, flanks, self.starts = gen.build_panel(
             cfg, self.seed)
+        if gen.single_reads(cfg):
+            self.samples = [gen.draw_single_sample(self.loci, flanks, cfg, tr,
+                                                   self.seed, i)
+                            for i in range(tr["samples"])]
+            self.flank = None
+            self.fastq = [gen.write_sample_single(work, i, s)
+                          for i, s in enumerate(self.samples)]
+        else:
+            self._draw_pairs(flanks)
+        self.ref, self.bed, self.haps = gen.write_add_inputs(
+            work, self.loci, self.genome, self.starts)
+        self.db, self.prep = work / "db", work / "sample"
+        gen.write_background_model(self.prep, background_model(tr))
+
+    def _draw_pairs(self, flanks):
+        from . import gen
+        cfg, tr, work = self.cfg, self.traffic, self.work
         self.samples = [gen.draw_sample(self.loci, cfg, tr, self.seed, i)
                         for i in range(tr["samples"])]
         f1, f2 = gen.flank_pairs(flanks, cfg, tr, self.seed)
@@ -135,15 +157,13 @@ class Cell:
                       for i, s in enumerate(self.samples)]
         for p in gz:
             p.unlink()
-        self.ref, self.bed, self.haps = gen.write_add_inputs(
-            work, self.loci, self.genome, self.starts)
-        self.db, self.prep = work / "db", work / "sample"
-        gen.write_background_model(self.prep, background_model(tr))
 
     def genotype_args(self, sample, out):
-        fq1, fq2 = self.fastq[sample]
-        return ["genotype", "-i", str(fq1), str(fq2), "-d", str(self.db),
-                "-p", str(self.prep), "-o", str(out)]
+        """`genotype` of one sample; a configuration's `genotype_options`
+        (genotype's own options, such as a scheme) come last."""
+        return ["genotype", "-i", *map(str, self.fastq[sample]), "-d",
+                str(self.db), "-p", str(self.prep), "-o", str(out),
+                *self.cfg.get("genotype_options", ())]
 
     def add(self):
         from locityper_tpu_torch import cli

@@ -70,3 +70,26 @@ def test_breakdown_names_gaps_by_layer():
                                               "entry"]
     assert b["idle_gaps"][0][1] == pytest.approx(3.75)
     assert len(b["device_ops"]) <= 10 and len(b["idle_gaps"]) <= 10
+
+
+def test_layer_spans_cover_both_paths_once(monkeypatch):
+    """Every entry of a layer is an attribute of the program; a call into
+    a layer already open (the panel's solve calling the one-locus solve's
+    steps) adds no span of its own and no synchronisation."""
+    import importlib
+
+    import torch
+    for entries in T.SPANS.values():
+        for module, attr in entries:
+            assert callable(getattr(importlib.import_module(module), attr))
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: syncs.append(1))
+    tr = T.Trace()
+    open_spans = set()
+    inner = T.span_wrapper(tr, "solve", open_spans)(lambda: 7)
+    outer = T.span_wrapper(tr, "solve", open_spans)(lambda: inner() + 1)
+    other = T.span_wrapper(tr, "align", open_spans)(lambda: inner())
+    assert outer() == 8 and len(tr.spans["solve"]) == 1 and len(syncs) == 1
+    assert inner() == 7 and len(tr.spans["solve"]) == 2 and not open_spans
+    assert other() == 7 and len(tr.spans["solve"]) == 3
+    assert len(tr.spans["align"]) == 1 and len(syncs) == 4

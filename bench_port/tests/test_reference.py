@@ -81,6 +81,38 @@ def test_aligner_equals_the_ports_plain_version():
     assert not torch.equal(low["score"], got["score"])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launches_of_many_widths_align_as_each_alone(dtype, monkeypatch):
+    """check.reference_align pads a group's reads and windows to its
+    widest and splits them into blocks: every launch's outputs are still
+    those of the reference aligner on that launch alone."""
+    from bench_port import check
+    g = torch.Generator().manual_seed(5)
+    band = 12
+    hap = torch.randint(0, 4, (6000,), generator=g, dtype=torch.int8)
+    sv = torch.tensor([-0.0024, -6.2, -8.5, -8.5, -6.2])
+    group = []
+    for n, L in ((5, 40), (3, 64), (7, 24), (4, 64)):
+        start = torch.randint(band, 5000, (n,), generator=g)
+        reads = hap[start[:, None] + torch.arange(L)]
+        flip = torch.rand((n, L), generator=g) < 0.05
+        reads = torch.where(flip, (reads + 1) % 4, reads).to(torch.int8)
+        lens = torch.randint(L // 2, L + 1, (n,), generator=g,
+                             dtype=torch.int32)
+        wins = hap[(start - band // 2)[:, None] + torch.arange(L + band)]
+        group.append((0, reads, lens, wins, sv, band, 32, None))
+    # Blocks of about two launches.
+    monkeypatch.setattr(check, "ALIGN_BLOCK_BYTES", 6 * (64 + 64 + band))
+    got = check.reference_align(group, dtype)
+    assert len(got) == len(group)
+    for job, out in zip(group, got):
+        want = reference.align(*job[1:4], sv, band, 32, dtype)
+        for k, v in want.items():
+            assert torch.equal(out[k], v), k
+    assert len(check.align_groups(group + [group[0][:5] + (band + 2, 32,
+                                                           None)])) == 2
+
+
 def test_chain_likelihood_equals_the_annealers():
     from locityper_tpu_torch.ops.solver_chains import anneal_chains_reference
     g = torch.Generator().manual_seed(5)
@@ -198,3 +230,119 @@ def test_probe_picks_are_seeded_distinct_and_sorted():
     assert not torch.equal(a._pick(1000, 16, cpu), x)
     assert torch.equal(a._pick(5, 16, cpu), torch.arange(5))
     assert not torch.equal(Probe(3)._pick(1000, 16, cpu), x)
+
+
+# -- single long reads -------------------------------------------------------
+
+LONG = json.loads(json.dumps(CFG))
+LONG["panel"].update(n_loci=2, locus_len=1500, paralog={
+    "identity": 0.97, "spacer": 1000, "margin": 1000})
+LONG["reads"] = {"technology": "ont", "read_len_mean": 2000,
+                 "read_len_sd": 300, "mismatch": 0.02, "insertion": 0.008,
+                 "deletion": 0.008}
+LONG["flank_len"] = 6000
+LONG_TRAFFIC = {"samples": 1, "locus_depth": 10.0, "flank_multiple": 1}
+
+
+def _port_loci(loci, genome, starts):
+    """The port's LocusData of every locus, k-mers counted in `genome`
+    as `add` counts them."""
+    from locityper_tpu_torch.pipeline import LocusData
+    from locityper_tpu_torch.seq.contigs import ContigSet
+    from locityper_tpu_torch.seq.counts import (GenomeKmerCounter,
+                                                off_target_counts)
+    counter = GenomeKmerCounter(25)
+    counter.add_seq(genome)
+    counter.finalize()
+    return {lc.name: LocusData(
+        ContigSet(lc.name, lc.hap_names, lc.haplotypes),
+        off_target_counts(counter, lc.haplotypes,
+                          genome[st:st + lc.haplotypes[0].size]))
+        for lc, st in zip(loci, starts)}
+
+
+def test_the_paralog_widens_every_locus():
+    loci, genome, flanks, starts = gen.build_panel(LONG, 11)
+    p = LONG["panel"]["paralog"]
+    for lc, st in zip(loci, starts):
+        assert np.array_equal(genome[st:st + lc.haplotypes[0].size],
+                              lc.haplotypes[0])
+        # The haplotypes differ in the gene alone: they share the left
+        # margin, and the spacer, the paralog and the right margin.
+        assert len({h[:p["margin"]].tobytes() for h in lc.haplotypes}) == 1
+        tail = min(h.size for h in lc.haplotypes)
+        while len({h[-tail:].tobytes() for h in lc.haplotypes}) > 1:
+            tail -= 1
+        assert p["margin"] + p["spacer"] + 1400 < tail < 3 * 1500
+        assert lc.haplotypes[0].size - tail > 1400
+    s = gen.draw_single_sample(loci, flanks, LONG, LONG_TRAFFIC, 11, 0)
+    assert s.mates2 is None and len(s.names) == len(set(s.names))
+    lens = np.array([r.size for r in s.mates1])
+    assert 1500 < lens.mean() < 2500 and lens.min() >= 300
+    # Both copies are read whole at 10x: about 2 x 10 x the contig.
+    assert 0.8 < lens.sum() / (20 * genome.size) < 1.2
+
+
+def test_decide_long_equals_the_ports_run_long():
+    """On reads of the loci, of their paralogs, of the flanks and of
+    random sequence, each in a row of its length class."""
+    from locityper_tpu_torch.ops.recruit import DeviceIndex, run_long
+    from locityper_tpu_torch.pipeline import _target_index
+    from locityper_tpu_torch.seq.recruit import RecruitParams
+    seed = 2**36 + 5
+    loci, genome, flanks, starts = gen.build_panel(LONG, seed)
+    rng = np.random.default_rng(seed)
+    p = LONG["panel"]["paralog"]
+    paralogs = [lc.haplotypes[0][-p["margin"] - 1550:-p["margin"]]
+                for lc in loci]
+    draw = dict(length=(2000, 300), errors=(0.02, 0.008, 0.008))
+    _, reads = gen.draw_single_reads(
+        rng, [h for lc in loci for h in lc.haplotypes[:2]] + flanks, 3.0,
+        prefix="r", **draw)
+    reads += gen.draw_single_reads(rng, paralogs, 6.0, prefix="p",
+                                   **dict(draw, length=(1200, 200)))[1]
+    reads += [gen.random_genome(rng, int(n))
+              for n in rng.integers(600, 5000, 24)]
+    index = reference.RecruitIndex(loci, genome, starts, "cpu")
+    rp = RecruitParams(match_frac=0.5)
+    assert (rp.stretch_minims, rp.stretch_score) == (
+        reference.STRETCH_MINIMS, reference.STRETCH_SCORE)
+    dev = DeviceIndex.from_index(_target_index(
+        _port_loci(loci, genome, starts), rp))
+    hits = 0
+    for width, rows in reference._single_rows(reads):
+        assert width > reference.SHORT_CAP
+        codes = reference._pad_rows([reads[i] for i in rows], width, "cpu")
+        want = run_long(dev, codes.numpy(), rp.stretch_minims,
+                        rp.stretch_score, device="cpu")
+        got = index.decide_long(codes).numpy()
+        assert np.array_equal(got, want), width
+        hits += int(got.sum())
+    assert 0 < hits < len(reads)
+
+
+def test_recruit_single_equals_the_ports_records_path():
+    """A drawn sample through the port's `recruit_records` (its own row
+    widths and blocks) and through `reference.recruit_single`; shorter
+    keys, as the control's, recruit otherwise."""
+    from locityper_tpu_torch.pipeline import recruit_records
+    from locityper_tpu_torch.seq.recruit import RecruitParams
+    seed = 2**36 + 9
+    loci, genome, flanks, starts = gen.build_panel(LONG, seed)
+    s = gen.draw_single_sample(loci, flanks, LONG, LONG_TRAFFIC, seed, 0)
+    rng = np.random.default_rng(seed)
+    names = s.names + ["short0", "short1"]
+    reads = s.mates1 + [loci[0].haplotypes[0][1200:1600],
+                        gen.random_genome(rng, 450)]
+    got = reference.recruit_single(
+        reference.RecruitIndex(loci, genome, starts, "cpu"), names, reads)
+    rec, _ = recruit_records(_port_loci(loci, genome, starts),
+                             iter(zip(names, reads, [None] * len(reads))),
+                             RecruitParams(match_frac=0.5), device="cpu")
+    assert got == {k: set(v[1]) for k, v in rec.items()}
+    assert "short0" in got[loci[0].name]
+    assert sum(map(len, got.values())) > len(s.names) / 4
+    low = reference.recruit_single(
+        reference.RecruitIndex(loci, genome, starts, "cpu", bits=12),
+        names, reads)
+    assert low != got

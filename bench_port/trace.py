@@ -20,11 +20,19 @@ import torch
 
 from . import roofline
 
-#: Layer span name -> (module, attribute) of the call into it.
+#: Layer span name -> the (module, attribute) of each call into it: the
+#: multi-locus panel's entries first, then those of one locus
+#: (`pipeline.genotype_locus`, whose solve step is three calls) and of
+#: reads that are not two FASTQ files.  A call into a layer already open
+#: (`genotype_panel` calls `_prepare_solve_inputs`) runs unwrapped.
+_CMD = "locityper_tpu_torch.commands.genotype"
+_PIPE = "locityper_tpu_torch.pipeline"
 SPANS = {
-    "recruit": ("locityper_tpu_torch.commands.genotype", "recruit_reads_fast"),
-    "align": ("locityper_tpu_torch.model.locs", "build_all_alignments_panel"),
-    "solve": ("locityper_tpu_torch.pipeline", "genotype_panel"),
+    "recruit": ((_CMD, "recruit_reads_fast"), (_CMD, "recruit_records")),
+    "align": (("locityper_tpu_torch.model.locs", "build_all_alignments_panel"),
+              (_PIPE, "build_all_alignments")),
+    "solve": ((_PIPE, "genotype_panel"), (_PIPE, "_prepare_solve_inputs"),
+              (_PIPE, "solve_locus"), (_PIPE, "_finalize_locus")),
 }
 #: Kernel -> (module, attribute of its wrapper, a word of its device name).
 KERNELS = {
@@ -112,9 +120,12 @@ def patch(where, attr, make):
         setattr(owner, attr, orig)
 
 
-def span_wrapper(trace: Trace, name):
+def span_wrapper(trace: Trace, name, open_spans: set):
     def make(orig):
         def span(*a, **kw):
+            if name in open_spans:
+                return orig(*a, **kw)
+            open_spans.add(name)
             t0 = time.perf_counter()
             try:
                 return orig(*a, **kw)
@@ -122,6 +133,7 @@ def span_wrapper(trace: Trace, name):
                 torch.cuda.synchronize()
                 trace.spans.setdefault(name, []).append(
                     (t0, time.perf_counter()))
+                open_spans.discard(name)
         return span
     return make
 
@@ -174,8 +186,11 @@ def tracer(trace: Trace):
     """The span wrappers and the launch recorders, installed while in
     use."""
     with contextlib.ExitStack() as stack:
-        for name, (module, attr) in SPANS.items():
-            stack.enter_context(patch(module, attr, span_wrapper(trace, name)))
+        open_spans = set()
+        for name, entries in SPANS.items():
+            for module, attr in entries:
+                stack.enter_context(patch(
+                    module, attr, span_wrapper(trace, name, open_spans)))
         for kernel, make in recorders(trace).items():
             module, attr, _ = KERNELS[kernel]
             stack.enter_context(patch(module, attr, make))
